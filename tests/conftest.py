@@ -13,6 +13,10 @@ def pytest_configure(config):
         "soak: long seeded fault-injection soak — excluded from tier-1; "
         "opt in with RUN_SOAK=1 (scripts/check.sh runs it under "
         "CHECK_BENCH=1)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's hand-written kernels have no "
+        "CPU mode); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
