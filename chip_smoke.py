@@ -31,9 +31,8 @@ N_SAMPLED = 32                 # oracle spot check, as planner_scale samples
 N_TIMED = 25                   # CUDA-event timings per kernel (median)
 DT_S, SLOT_S, STRIDE = 60.0, 3600.0, 60
 
-# H100 SXM peaks: HBM bytes/s and f32 non-tensor FLOP/s (NVIDIA's data
-# sheet, as tabled in the on-chip-measurement guide), f64 non-tensor
-# FLOP/s (the same data sheet)
+# H100 SXM peaks: HBM bytes/s, f32 and f64 non-tensor FLOP/s (NVIDIA's
+# data sheet)
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
