@@ -3,19 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the planner's two CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-``sm_90a``, into ``build/repro_torch_kernels/``), holds each against its
-plain torch version on the tables of a real 4096-job admission window,
-then drives the port's main path — ``TorchCarbonPlanner.plan_batch`` over
-four 4096-job windows of the ``planner_scale`` deployment — and checks 32
-sampled plans against the port's numpy oracle. Every phase that fails
-raises, so the exit code is non-zero; without a CUDA device the script
-exits 2 and prints no result. The last line of stdout is one JSON object
-``{"ok": true, "device": {...}}``.
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+source, started together, ``sm_90a``, into ``build/repro_torch_kernels/``)
+and drives the port's two paths:
+
+* fleet admission planning: the planner's two kernels against their plain
+  torch versions on the tables of a real 4096-job admission window, then
+  ``TorchCarbonPlanner.plan_batch`` over four 4096-job windows of the
+  ``planner_scale`` deployment, with 32 sampled plans checked against the
+  port's numpy oracle;
+* serving gemma3-12b at full width and depth (48 layers, d_model 3840,
+  vocab 262144, random weights from a seed): the flash-attention kernel
+  against its plain version at the prefill's shapes (global, window 1024
+  and a ragged length), then ``Server`` answering 8 requests of 2048-token
+  prompts with 32 new tokens each, the cached logits checked against a
+  plain full forward and the flash prefill against the naive one.
+
+Every phase that fails raises, so the exit code is non-zero; without a
+CUDA device the script exits 2 and prints no result. The last line of
+stdout is one JSON object ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -31,14 +43,44 @@ N_SAMPLED = 32                 # oracle spot check, as planner_scale samples
 N_TIMED = 25                   # CUDA-event timings per kernel (median)
 DT_S, SLOT_S, STRIDE = 60.0, 3600.0, 60
 
-# H100 SXM peaks: HBM bytes/s, f32 and f64 non-tensor FLOP/s (NVIDIA's
-# data sheet)
+# H100 SXM peaks: HBM bytes/s, f32 and f64 non-tensor FLOP/s, bf16 dense
+# tensor-core FLOP/s (NVIDIA's data sheet)
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
+BF16_TC_FLOPS = 989e12
 
 REPO = Path(__file__).resolve().parent
 KERNEL_SRC = "src/repro_torch/csrc/planner_kernels.cu"
+FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
+
+# serving: gemma3-12b at full width and depth, 8 requests in static batches
+# of 4, 2048-token prompts, 32 new tokens each
+DEVICE = "cuda"
+ARCH = "gemma3-12b"
+SERVE_BATCH, N_REQUESTS, PROMPT_LEN, MAX_NEW = 4, 8, 2048, 32
+S_MAX = 2080
+SEED = 0
+# flash check at the prefill's shapes: (name, T = S, window)
+FLASH_CASES = (("global", PROMPT_LEN, None), ("local", PROMPT_LEN, 1024),
+               ("ragged", 2000, None))
+
+# The flash kernel against its plain version, both rounded to bf16. Its f32
+# result differs from the plain one only by sum order and by P being
+# multiplied as a bf16 high part plus a bf16 remainder, so the bf16 outputs
+# differ only where a rounding boundary falls between them. Bound on
+# ||kernel - plain|| / ||plain||: rounding P to one bf16 (~2e-3), an
+# accumulator in bf16 (~4e-3) or a dropped window mask (~0.2) all exceed it
+# (tests/test_torch_flash.py emulates each). Elementwise, two correct
+# results may differ by one bf16 ulp of the largest output.
+FLASH_REL_RMS_TOL = 5e-4
+# Logits of two bf16 computations of the same tokens, relative to the
+# largest |logit|: cached decode against the full forward (GEMMs of one row
+# against 2079 rows) and flash against naive prefill attention round at
+# different places, ~2^-9 relative each, over 96 sub-layers. A cache slot,
+# position or mask that is wrong moves logits by O(max |logit|), as the
+# off-by-one control shows.
+LOGIT_TOL_REL = 5e-2
 
 
 def gpu_line() -> str:
@@ -268,6 +310,320 @@ class SplitTimer:
                 for n, ev in self.events.items()}
 
 
+# --- serving gemma3-12b through the flash kernel ----------------------------
+
+def power_limit_w(line: str) -> float:
+    """The power limit of an nvidia-smi ``name, 700.00 W`` line."""
+    return float(line.rsplit(",", 1)[1].split()[0])
+
+
+def flash_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The kernel's output against its plain version's: the largest
+    absolute error and its bound (one bf16 ulp of the largest plain
+    output), and the relative RMS error (see FLASH_REL_RMS_TOL)."""
+    g, w = got.float(), want.float()
+    top = float(w.abs().max())
+    return {"max_abs_err": float((g - w).abs().max()),
+            "max_abs_tol": 2.0 ** (math.floor(math.log2(top)) - 7)
+            if top > 0 else 0.0,
+            "rel_rms_err": float((g - w).norm() / w.norm())}
+
+
+def flash_bound_ms(b: int, t: int, hq: int, hkv: int, d: int,
+                   window) -> tuple:
+    """Least time for one flash call on these inputs: 4*d tensor-core FLOP
+    (QK^T and PV) per unmasked (q, k) pair at the bf16 dense peak, against
+    q, k and v read once and o written once."""
+    keys = torch.arange(1, t + 1, dtype=torch.float64)
+    if window is not None:
+        keys = keys.clamp(max=window)
+    ops_s = 4 * d * float(keys.sum()) * b * hq / BF16_TC_FLOPS
+    bytes_s = 2 * (2 * b * t * hq * d + 2 * b * t * hkv * d) / HBM_BPS
+    return 1e3 * max(ops_s, bytes_s), (
+        "operations" if ops_s >= bytes_s else "bytes")
+
+
+def check_flash(fa, cfg) -> list:
+    """The flash kernel against its plain version at gemma3-12b's prefill
+    shapes (4 sequences, 16 query heads over 8 kv heads, head_dim 240,
+    bf16); ``scaled_dot_product_attention`` on the same inputs and mask is
+    timed as the library yardstick only."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cases = []
+    for name, t, window in FLASH_CASES:
+        q, k, v = (torch.randn((SERVE_BATCH, t, h, d), generator=gen,
+                               device=DEVICE).to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=True, window=window)
+
+        def plain():
+            return fa.flash_attention_plain(q, k, v, causal=True,
+                                            window=window)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = flash_errors(got, want)
+        del got, want
+        if not (err["rel_rms_err"] <= FLASH_REL_RMS_TOL
+                and err["max_abs_err"] <= err["max_abs_tol"]):
+            raise RuntimeError(f"flash kernel disagrees with its plain "
+                               f"version ({name}): {err}")
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+                  .contiguous() for x in (k, v))
+        pos = torch.arange(t, device=DEVICE)
+        mask = (pos[None, :] <= pos[:, None]) & (
+            pos[:, None] - pos[None, :] < (window or t + 1))
+
+        def library():
+            if window is None:
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask)
+
+        bound, by = flash_bound_ms(SERVE_BATCH, t, hq, hkv, d, window)
+        case = {"case": name, "q": list(q.shape), "kv": list(k.shape),
+                "window": window, **err, "tol_rel_rms": FLASH_REL_RMS_TOL,
+                "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+                "library_ms": median_ms(library), "bound_ms": bound,
+                "bound_by": by}
+        case["bound_share"] = bound / case["ms"]
+        emit({"flash_check": case})
+        cases.append(case)
+        del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return cases
+
+
+class ServeProbe:
+    """Instruments the serve loop without changing it: a host clock around
+    each synchronized prefill, the logits of every prefill and decode step
+    kept, and CUDA events around every flash kernel launch in the bound
+    library, so the wrappers and their launch counts run as they are."""
+
+    def __init__(self, serve_loop, fa):
+        self.sl, self.lib = serve_loop, fa._library()
+        self.orig = (serve_loop.prefill, serve_loop.decode_step,
+                     self.lib.flash_attention_fwd)
+        self.epochs: list = []
+        self._events: list = []
+
+    def __enter__(self):
+        prefill, decode, launch = self.orig
+
+        def timed_prefill(model, run, tokens, s_max):
+            self._events = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(model, run, tokens, s_max)
+            torch.cuda.synchronize()
+            self.epochs.append({"prefill_s": time.perf_counter() - t0,
+                                "tokens": tokens, "logits": [logits],
+                                "flash": self._events})
+            return logits, cache
+
+        def kept_decode(model, run, token, cache, cur):
+            logits, cache = decode(model, run, token, cache, cur)
+            self.epochs[-1]["logits"].append(logits)
+            return logits, cache
+
+        def timed_launch(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = launch(*a)
+            stop.record()
+            self._events.append((start, stop))
+            return err
+
+        self.sl.prefill, self.sl.decode_step = timed_prefill, kept_decode
+        self.lib.flash_attention_fwd = timed_launch
+        return self
+
+    def __exit__(self, *exc):
+        self.sl.prefill, self.sl.decode_step, \
+            self.lib.flash_attention_fwd = self.orig
+
+    @staticmethod
+    def flash_ms(epoch) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in epoch["flash"])
+
+
+def serve(fa, sl, cfg, run, power_w: float):
+    """The serving main path: ``Server`` answers N_REQUESTS requests in
+    static batches on the card; returns the server, the probe and the
+    flash launches counted over the path."""
+    t0 = time.perf_counter()
+    srv = sl.Server(cfg, run, batch=SERVE_BATCH, s_max=S_MAX, chip_count=1,
+                    chip_power_w=power_w, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in srv.model.parameters())
+    emit({"serve_setup": {
+        "arch": cfg.name, "layers": len(srv.model.decoder.layers),
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "window": cfg.sliding_window,
+        "params": n_params, "param_counts": cfg.param_counts()["total"],
+        "weights_gb": sum(p.numel() * p.element_size()
+                          for p in srv.model.parameters()) / 1e9,
+        "init_s": time.perf_counter() - t0, "site": srv.site,
+        "chip_power_w": power_w}})
+    if n_params != cfg.param_counts()["total"] \
+            or len(srv.model.decoder.layers) != cfg.n_layers:
+        raise RuntimeError("the served model is not gemma3-12b at full "
+                           "size")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (N_REQUESTS, PROMPT_LEN))
+    for i in range(N_REQUESTS):
+        srv.submit(sl.Request(rid=i, prompt=torch.as_tensor(prompts[i]),
+                              max_new_tokens=MAX_NEW))
+    sites = set(srv.cluster.sites)
+    fa.flash_attention.launches = 0
+    with ServeProbe(sl, fa) as probe:
+        while srv.queue:
+            before = fa.flash_attention.launches
+            done = srv.step_epoch()
+            ep = probe.epochs[-1]
+            if len(done) != SERVE_BATCH or any(
+                    len(c.tokens) != MAX_NEW or c.emissions_mg <= 0
+                    or c.site not in sites
+                    or not all(0 <= t < cfg.vocab_size for t in c.tokens)
+                    for c in done):
+                raise RuntimeError(f"epoch {len(probe.epochs) - 1}: "
+                                   f"malformed completions")
+            want = torch.stack([lg.argmax(-1) for lg in ep["logits"]],
+                               dim=1).cpu()
+            if any(c.tokens != want[j].tolist()
+                   for j, c in enumerate(done)):
+                raise RuntimeError("completions are not the argmax of the "
+                                   "logits the loop computed")
+            lat, pre = done[0].latency_s, ep["prefill_s"]
+            flash_ms = probe.flash_ms(ep)
+            emit({"epoch": len(probe.epochs) - 1, "site": done[0].site,
+                  "rids": [c.rid for c in done], "latency_s": lat,
+                  "prefill_s": pre,
+                  "decode_ms_per_step": (lat - pre) / (MAX_NEW - 1) * 1e3,
+                  "gen_tokens_per_s": SERVE_BATCH * MAX_NEW / lat,
+                  "prompt_tokens_per_s": SERVE_BATCH * PROMPT_LEN / pre,
+                  "mg_co2_per_request": done[0].emissions_mg,
+                  "flash_launches": fa.flash_attention.launches - before,
+                  "flash_ms_in_prefill": flash_ms,
+                  "flash_share_of_prefill": flash_ms / 1e3 / pre})
+    launches = fa.flash_attention.launches
+    n_prefill = len(probe.epochs)
+    lat = sum(c.latency_s for c in srv.completions) / SERVE_BATCH
+    emit({"serve_main_path": {
+        "requests": len(srv.completions), "prefills": n_prefill,
+        "flash_launches": launches,
+        "gen_tokens_per_s": len(srv.completions) * MAX_NEW / lat,
+        "wall_s": lat}})
+    if launches != cfg.n_layers * n_prefill:
+        raise RuntimeError(f"flash launches {launches} != {cfg.n_layers} "
+                           f"layers x {n_prefill} prefills")
+    return srv, probe, launches
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def check_logits(M, srv, probe) -> dict:
+    """First epoch: the cached path's logits (prefill's last position and
+    every decode step) against a plain full forward over prompt and
+    generated tokens (naive attention, no cache), and the flash prefill
+    against the naive one. A control compares each cached step with the
+    full forward's next position: a cache off by one slot would look like
+    it."""
+    ep = probe.epochs[0]
+    model = srv.model
+    naive = dataclasses.replace(srv.run, attn_impl="naive")
+    cached = torch.stack(ep["logits"], dim=1)                  # [B, 32, V]
+    fed = torch.stack([lg.argmax(-1) for lg in ep["logits"][:-1]], dim=1)
+    seq = torch.cat([ep["tokens"], fed], dim=1)                # [B, 2079]
+    h = M.forward_hidden(model, naive, seq)
+    full = M.unembed(model, h[:, PROMPT_LEN - 1:]).float()     # [B, 32, V]
+    del h
+    naive_prefill, cache = M.prefill(model, naive, ep["tokens"], S_MAX)
+    del cache
+    res = {"positions": int(full.shape[1]),
+           "finite": bool(torch.isfinite(cached).all()
+                          and torch.isfinite(full).all()),
+           "max_abs_logit": float(full.abs().max()),
+           "cached_vs_full_rel": rel_err(cached, full),
+           "cached_vs_full_prefill_pos_rel": rel_err(cached[:, 0],
+                                                     full[:, 0]),
+           "control_off_by_one_rel": rel_err(cached[:, 1:], full[:, :-1]),
+           "flash_vs_naive_prefill_rel": rel_err(ep["logits"][0],
+                                                 naive_prefill),
+           "argmax_agree_cached_full": float(
+               (cached.argmax(-1) == full.argmax(-1)).float().mean()),
+           "tol_rel": LOGIT_TOL_REL}
+    emit({"logit_check": res})
+    if not (res["finite"]
+            and res["cached_vs_full_rel"] <= LOGIT_TOL_REL
+            and res["flash_vs_naive_prefill_rel"] <= LOGIT_TOL_REL
+            and res["control_off_by_one_rel"] > LOGIT_TOL_REL):
+        raise RuntimeError(f"logit check failed: {res}")
+    return res
+
+
+def profile_serving(M, srv, tokens) -> dict:
+    """Device time by kernel over one prefill and three decode steps
+    (``torch.profiler``), and the device's busy share of each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(prof) -> dict:
+        out = {}
+        for evt in prof.key_averages():
+            if getattr(evt, "device_type", None) != DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            out[evt.key] = out.get(evt.key, 0.0) + us / 1e3
+        return out
+
+    def split(ks: dict, wall_s: float) -> dict:
+        flash = sum(v for k, v in ks.items() if "flash_fwd" in k)
+        gemm = sum(v for k, v in ks.items()
+                   if any(w in k.lower() for w in
+                          ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
+        total = sum(ks.values())
+        top = sorted(ks.items(), key=lambda kv: -kv[1])[:8]
+        return {"wall_ms": wall_s * 1e3, "device_ms": total,
+                "busy_share": total / (wall_s * 1e3),
+                "flash_ms": flash, "gemm_ms": gemm,
+                "other_ms": total - flash - gemm,
+                "top": [[k[:90], v] for k, v in top]}
+
+    act = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(srv.model, srv.run, tokens, S_MAX)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+    tok = logits.argmax(-1)[:, None]
+    with profile(activities=act) as prof_d:
+        t0 = time.perf_counter()
+        for i in range(3):
+            logits, cache = M.decode_step(srv.model, srv.run, tok, cache,
+                                          PROMPT_LEN + i)
+            tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    return {"prefill": split(kernels(prof), pre_s),
+            "decode_3_steps": split(kernels(prof_d), dec_s)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -276,6 +632,12 @@ def main() -> int:
     from repro_torch.core.scheduler import grid_cuda
     from repro_torch.core.scheduler import grid_torch as gt
     from repro_torch.core.scheduler import planner as tp
+    from repro_torch._build import build
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_loop as sl
 
     # 1. device
     card = gpu_line()
@@ -284,14 +646,18 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    lib, log = grid_cuda.build_kernels()
+    built = build(grid_cuda._SOURCE, fa._SOURCE)
     grid_cuda._library()
-    emit({"build_s": time.perf_counter() - t0, "library": lib.name})
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("ptxas:", line.strip(), flush=True)
+    fa._library()
+    emit({"build_s": time.perf_counter() - t0,
+          "libraries": {n: lib.name for n, (lib, _) in built.items()}})
+    for _, log in built.values():
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "smem")):
+                print("ptxas:", line.strip(), flush=True)
 
     # 3. kernels against their plain versions
     ftns, job = planner_scale_jobs(tp)
@@ -369,7 +735,36 @@ def main() -> int:
         raise RuntimeError(f"fused plans diverge from the numpy oracle: "
                            f"{mism} mismatches, emissions rel {rel:.3e}")
 
-    # 6. results
+    # 6. the flash kernel against its plain version at the prefill's shapes
+    cfg = get_config(ARCH)
+    flash_cases = check_flash(fa, cfg)
+
+    # 7. the serving main path. cuBLAS reduces bf16 GEMMs in f32 (no
+    # reduced-precision reduction) and f32 GEMMs in full f32 (no TF32), so
+    # the logit check below compares roundings to bf16 only.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = RunConfig(arch=ARCH, attn_impl="flash", remat="none", seed=SEED)
+    srv, probe, flash_launches = serve(fa, sl, cfg, run, power_limit_w(card))
+
+    # 8. logits: cached path against the plain full forward
+    check_logits(M, srv, probe)
+    emit({"profile": profile_serving(M, srv, probe.epochs[0]["tokens"])})
+
+    # 9. results
+    worst = max(flash_cases, key=lambda c: c["rel_rms_err"])
+    kernels.append(
+        {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+         "replaces": "src/repro/kernels/flash_attention.py:30",
+         "launches": flash_launches,
+         "max_abs_err": max(c["max_abs_err"] for c in flash_cases),
+         "rel_rms_err": worst["rel_rms_err"],
+         **{k: flash_cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+         "timed_case": flash_cases[0]["case"],
+         "cases": {c["case"]: {k: c[k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+             "rel_rms_err")} for c in flash_cases}})
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

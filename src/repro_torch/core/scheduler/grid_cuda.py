@@ -31,16 +31,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch._build import KernelSource, load
 from repro_torch._device import resolve_device
 from repro_torch.core.carbon.field import CarbonField
 from repro_torch.core.carbon.path import NetworkPath
@@ -57,53 +53,16 @@ _MAX_ELEMS_PALLAS = 2 * 1024 * 1024
 # dur_s, w_perf/slack, w_carbon, budget_g, submitted_t]
 _CELL_COLS = 8
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "planner_kernels.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" \
-    / "repro_torch_kernels"
 # no fast math: the CI chain needs full-precision cosf/expf, and no FMA
 # contraction keeps each op rounded as in the plain torch version
-_NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
-               "-fPIC")
+_SOURCE = KernelSource("planner_kernels", ("--fmad=false",))
 
 
 # --- build and bind ----------------------------------------------------------
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: the planner kernels are built "
-                           "from source and need the CUDA toolkit")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build_kernels() -> Tuple[Path, str]:
-    """Compile ``planner_kernels.cu`` unless a build of this exact source
-    and these flags exists. Returns the library path and nvcc's output
-    (``-Xptxas -v``: registers and spills per kernel; empty when cached).
-    """
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    lib = _BUILD_DIR / f"libplanner_kernels_{tag[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {_SRC}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    os.replace(tmp, lib)               # atomic: a reader never sees half
-    return lib, proc.stdout + proc.stderr
-
-
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_kernels()[0]))
+    lib = load(_SOURCE)
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.planner_rate_prefix.argtypes = [ptr] * 7 + [i32] * 4 + [f64, ptr]
     lib.planner_rate_prefix.restype = i32

@@ -1,0 +1,126 @@
+"""Model-level API: the ``Transformer`` module, embedding, prefill/decode
+steps, the plain full forward and ``make_batch``.
+
+Batch layouts per shape kind, as in the reference's ``models/model.py``:
+  train:   {tokens [B,S], targets [B,S]}
+  prefill: {tokens [B,S]}                   -> (last_logits, cache)
+  decode:  {token [B,1], cache, cur}        -> (logits, cache)
+This slice serves the text-only dense family.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
+from repro_torch.models import kvcache as KC
+from repro_torch.models.convert import unstack
+from repro_torch.models.layers import check_attn_impl
+from repro_torch.models.params import init_params
+from repro_torch.models.transformer import Cache, Decoder, ParamGroup
+
+
+class Transformer(nn.Module):
+    """Embedding, decoder stack and output head over a state dict in the
+    port's naming (``embed.tok``, ``decoder.layers.{i}.attn.wqkv``, ...,
+    ``decoder.norm``, ``lm_head``). The tensors become the parameters as
+    they are: no copy."""
+
+    def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = ParamGroup({"tok": state["embed.tok"]})
+        self.decoder = Decoder(cfg, state)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(state["lm_head"], requires_grad=False)
+        have, want = set(self.state_dict()), set(state)
+        if have != want:
+            raise ValueError(f"state dict does not fit {cfg.name}: missing "
+                             f"{sorted(have - want)[:5]}, unexpected "
+                             f"{sorted(want - have)[:5]}")
+
+
+def build_model(cfg: ModelConfig, *, seed: int = 0,
+                device: Optional[Union[str, torch.device]] = None
+                ) -> Transformer:
+    """A model with random weights from a generator seeded with ``seed``
+    on ``device`` (``cuda`` unless given)."""
+    dev = resolve_device(device)
+    return Transformer(cfg, unstack(init_params(cfg, seed=seed, device=dev),
+                                    cfg))
+
+
+# ------------------------------------------------------------- embeddings --
+def embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    x = model.embed.tok[tokens]
+    # the scale is rounded to the param dtype first: bf16 gives 62.0 for
+    # sqrt(3840), as the reference's jnp.asarray(d ** 0.5, x.dtype) does
+    return x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype,
+                            device=x.device)
+
+
+def unembed(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    w = (model.embed.tok.T if model.cfg.tie_embeddings
+         else model.lm_head)
+    return x @ w.to(x.dtype)
+
+
+# ------------------------------------------------------------- serving -----
+@torch.inference_mode()
+def prefill(model: Transformer, run: RunConfig, tokens: torch.Tensor,
+            s_max: int) -> Tuple[torch.Tensor, List[Cache]]:
+    """tokens [B, S] -> (f32 logits at the last position [B, V], cache)."""
+    check_attn_impl(run.attn_impl)
+    cache = KC.zero_cache(model.cfg, tokens.shape[0], s_max,
+                          device=tokens.device)
+    x = model.decoder(embed(model, tokens), run, mode="prefill", cache=cache)
+    logits = unembed(model, x[:, -1:, :])[:, 0]
+    return logits.float(), cache
+
+
+@torch.inference_mode()
+def decode_step(model: Transformer, run: RunConfig, token: torch.Tensor,
+                cache: List[Cache], cur: int
+                ) -> Tuple[torch.Tensor, List[Cache]]:
+    """token [B, 1]; cur = number of tokens already in the cache. The cache
+    is updated in place and returned."""
+    x = model.decoder(embed(model, token), run, mode="decode", cache=cache,
+                      cur=cur)
+    logits = unembed(model, x)[:, 0]
+    return logits.float(), cache
+
+
+@torch.inference_mode()
+def forward_hidden(model: Transformer, run: RunConfig,
+                   tokens: torch.Tensor) -> torch.Tensor:
+    """The plain full forward: tokens [B, S] -> final hidden states
+    [B, S, d], no cache. Unembed only the positions a caller needs: at
+    gemma3-12b's vocabulary all of them would be [B, S, 262144] f32."""
+    check_attn_impl(run.attn_impl)
+    return model.decoder(embed(model, tokens), run, mode="train")
+
+
+# ------------------------------------------------------------ input batch --
+def make_batch(cfg: ModelConfig, shape: ShapeConfig,
+               generator: torch.Generator) -> Dict[str, object]:
+    """Random text inputs of one shape kind on the CPU, token ids drawn
+    uniformly from ``[0, min(vocab, 255))`` with ``generator`` (the
+    reference's range)."""
+    b, hi = shape.global_batch, min(cfg.vocab_size, 255)
+
+    def ids(*size):
+        return torch.randint(0, hi, size, generator=generator,
+                             dtype=torch.int64)
+
+    if shape.kind == "train":
+        return {"tokens": ids(b, shape.seq_len),
+                "targets": ids(b, shape.seq_len)}
+    if shape.kind == "prefill":
+        return {"tokens": ids(b, shape.seq_len)}
+    if shape.kind == "decode":
+        return {"token": ids(b, 1),
+                "cache": KC.zero_cache(cfg, b, shape.seq_len), "cur": 0}
+    raise ValueError(f"unknown shape kind {shape.kind!r}")

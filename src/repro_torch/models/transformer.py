@@ -1,0 +1,159 @@
+"""The decoder stack as ``torch.nn`` modules.
+
+The reference scans ``n_groups`` repetitions of a ``period``-long block
+pattern with stacked parameters; here the stack is a Python loop over one
+module per layer (layer ``g * period + i`` is the reference's group ``g``,
+sub-layer ``i``). One code path serves train (the plain full forward),
+prefill and decode — the mode only changes positions, masking source, and
+cache handling. This slice runs the ``dense`` family; the others raise
+until their slice of the port.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import kvcache as KC
+from repro_torch.models import params as P
+from repro_torch.models.layers import (apply_rope, attention,
+                                       attention_projections, ffn, rms_norm)
+
+Cache = Dict[str, torch.Tensor]
+
+
+class ParamGroup(nn.Module):
+    """A sub-layer's weights, registered under the reference's names."""
+
+    def __init__(self, tensors: Mapping[str, torch.Tensor]):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t,
+                                                       requires_grad=False))
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self._parameters)
+
+
+def _group(state: Mapping[str, torch.Tensor], prefix: str) -> ParamGroup:
+    return ParamGroup({k[len(prefix):]: v for k, v in state.items()
+                       if k.startswith(prefix)
+                       and "." not in k[len(prefix):]})
+
+
+# ------------------------------------------------------------- sublayers ---
+def _attn_sublayer(cfg: ModelConfig, run: RunConfig, spec: P.SubLayerSpec,
+                   p: Dict[str, torch.Tensor], x: torch.Tensor, *, mode: str,
+                   cur: Optional[int],
+                   cache: Optional[Cache]) -> torch.Tensor:
+    """Self-attention sub-layer. In prefill and decode it writes the layer's
+    keys and values into ``cache`` in place (the reference returns a new
+    cache; writing in place saves a copy of every layer's cache per
+    token)."""
+    B, S, _ = x.shape
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v = attention_projections(
+        p, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim)
+    window = None if spec.is_global else cfg.sliding_window
+    use_rope = cfg.rope_theta > 0
+
+    if mode in ("train", "prefill"):
+        pos = torch.arange(S, device=x.device)
+        if use_rope:
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        out = attention(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
+                        window=window, impl=run.attn_impl,
+                        block_kv=run.attn_block_kv)
+        if mode == "prefill":
+            sz = cache["k"].shape[1]
+            if S >= sz:
+                ks, vs = k[:, S - sz:], v[:, S - sz:]
+                if sz < S or (window is not None and sz == window):
+                    # ring order: position p sits in slot p % sz
+                    roll = S % sz
+                    ks = torch.roll(ks, roll, dims=1)
+                    vs = torch.roll(vs, roll, dims=1)
+                cache["k"].copy_(ks)
+                cache["v"].copy_(vs)
+            else:
+                cache["k"][:, :S] = k
+                cache["v"][:, :S] = v
+    elif mode == "decode":                           # S == 1
+        pos_q = torch.full((1,), cur, device=x.device)
+        if use_rope:
+            q = apply_rope(q, pos_q, cfg.rope_theta)
+            k = apply_rope(k, pos_q, cfg.rope_theta)
+        sz = cache["k"].shape[1]
+        is_ring = window is not None and sz <= window
+        slot = cur % sz if is_ring else min(cur, sz - 1)
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        kv_pos = KC.ring_positions(cur + 1, sz, window=is_ring,
+                                   device=x.device)
+        out = attention(q, cache["k"], cache["v"], q_pos=pos_q,
+                        kv_pos=kv_pos, causal=True, window=window,
+                        impl="naive")
+    else:
+        raise ValueError(f"mode must be train, prefill or decode, got "
+                         f"{mode!r}")
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"].to(x.dtype)
+
+
+def _ffn_sublayer(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                  x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    return ffn(p, h, gated=cfg.ffn_gated)
+
+
+# -------------------------------------------------------------- the stack ---
+class DecoderLayer(nn.Module):
+    """One attention sub-layer and its dense FFN."""
+
+    def __init__(self, cfg: ModelConfig, spec: P.SubLayerSpec,
+                 state: Mapping[str, torch.Tensor], prefix: str):
+        super().__init__()
+        self.cfg, self.spec = cfg, spec
+        self.attn = _group(state, prefix + "attn.")
+        if spec.has_ffn:
+            self.ffn = _group(state, prefix + "ffn.")
+
+    def forward(self, x: torch.Tensor, run: RunConfig, *, mode: str,
+                cur: Optional[int], cache: Optional[Cache]) -> torch.Tensor:
+        x = x + _attn_sublayer(self.cfg, run, self.spec, self.attn.params(),
+                               x, mode=mode, cur=cur, cache=cache)
+        if self.spec.has_ffn:
+            x = x + _ffn_sublayer(self.cfg, self.ffn.params(), x)
+        return x
+
+
+class Decoder(nn.Module):
+    """``n_layers`` decoder layers and the final norm."""
+
+    def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor]):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"the {cfg.family!r} family comes with a later slice of the "
+                f"port (ROADMAP.md, queue 1); this slice runs 'dense'")
+        self.cfg = cfg
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, spec, state, f"decoder.layers.{i}.")
+            for i, spec in enumerate(KC.layer_specs(cfg)))
+        self.norm = nn.Parameter(state["decoder.norm"], requires_grad=False)
+
+    def forward(self, x: torch.Tensor, run: RunConfig, *, mode: str,
+                cache: Optional[List[Cache]] = None,
+                cur: Optional[int] = None) -> torch.Tensor:
+        """x: [B, S, d] -> the final-normed hidden states; ``cache`` (one
+        dict per layer) is written in place in prefill and decode."""
+        if (cache is None) != (mode == "train"):
+            raise ValueError("prefill and decode take a cache, train none")
+        for i, layer in enumerate(self.layers):
+            x = layer(x, run, mode=mode, cur=cur,
+                      cache=None if cache is None else cache[i])
+        return rms_norm(x, self.norm, self.cfg.norm_eps)

@@ -1,0 +1,145 @@
+"""Carbon-aware serving runtime: batched request queue + prefill/decode
+loop + per-request carbon accounting + carbon-aware placement.
+
+Serving is latency-bound, so the paper's TIME lever doesn't apply to the
+requests themselves — but SPACE/OVERLAY do: the placement policy routes
+the serving job to the greenest site with capacity (re-evaluated each
+epoch), and KV-cache/model-weight movement for placement changes is bulk
+traffic handed to the carbon planner, like any other transfer.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Mapping, Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch._device import resolve_device
+from repro_torch.cluster.topology import Cluster, default_cluster
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.carbon.intensity import PAPER_WINDOW_T0, calibrated_ci
+from repro_torch.models.layers import check_attn_impl
+from repro_torch.models.model import (Transformer, build_model, decode_step,
+                                      prefill)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: torch.Tensor           # [S] integer token ids
+    max_new_tokens: int
+    submitted_t: float = 0.0
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: List[int]
+    latency_s: float
+    emissions_mg: float
+    site: str
+
+
+def pick_site(cluster: Cluster, t: float) -> str:
+    """Space/overlay lever for serving: greenest site hosts the replicas."""
+    return min(cluster.sites.values(),
+               key=lambda s: calibrated_ci(s.zone, t)).name
+
+
+class Server:
+    """Static-batch serving loop (continuous batching is a straightforward
+    extension of the same cache layout — slots are per-sequence).
+
+    ``run`` defaults to the kernel path (``attn_impl="flash"``). The model
+    lives on ``device`` (``cuda`` unless given; without a GPU that
+    raises): random weights from ``run.seed``, or ``params``, a state dict
+    in the port's naming (see :mod:`repro_torch.models.convert`). Energy is
+    ``chip_count * chip_power_w * wall time``; the defaults are one NVIDIA
+    H100 SXM at its 700 W board limit (data sheet).
+    """
+
+    def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None, *,
+                 batch: int = 4, s_max: int = 128,
+                 cluster: Optional[Cluster] = None,
+                 chip_count: int = 1, chip_power_w: float = 700.0,
+                 now: float = PAPER_WINDOW_T0,
+                 device: Optional[Union[str, torch.device]] = None,
+                 params: Optional[Mapping[str, torch.Tensor]] = None):
+        self.run = run or RunConfig(arch=cfg.name, attn_impl="flash",
+                                    remat="none")
+        check_attn_impl(self.run.attn_impl)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.batch, self.s_max = batch, s_max
+        self.cluster = cluster or default_cluster()
+        self.now = now
+        self.site = pick_site(self.cluster, now)
+        self.chip_count, self.chip_power_w = chip_count, chip_power_w
+        if params is None:
+            self.model = build_model(cfg, seed=self.run.seed,
+                                     device=self.device)
+        else:
+            self.model = Transformer(cfg, {k: v.to(self.device)
+                                           for k, v in params.items()})
+        self.queue: List[Request] = []
+        self.completions: List[Completion] = []
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _ci(self) -> float:
+        return calibrated_ci(self.cluster.zone_of(self.site), self.now)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def step_epoch(self) -> List[Completion]:
+        """Serve one static batch from the queue. Shorter prompts are
+        right-padded with token 0 and decoding starts after the longest
+        one, as in the reference."""
+        if not self.queue:
+            return []
+        batch_reqs = self.queue[:self.batch]
+        self.queue = self.queue[self.batch:]
+        # re-evaluate placement each epoch (overlay lever)
+        self.site = pick_site(self.cluster, self.now)
+
+        S = max(r.prompt.shape[0] for r in batch_reqs)
+        n = len(batch_reqs)
+        prompts = torch.stack([F.pad(r.prompt.to(torch.int64),
+                                     (0, S - r.prompt.shape[0]))
+                               for r in batch_reqs])
+        if n < self.batch:
+            prompts = F.pad(prompts, (0, 0, 0, self.batch - n))
+        prompts = prompts.to(self.device)
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = prefill(self.model, self.run, prompts, self.s_max)
+        tok = torch.argmax(logits, -1)[:, None]
+        out_tokens = [tok]
+        max_new = max(r.max_new_tokens for r in batch_reqs)
+        for i in range(max_new - 1):
+            logits, cache = decode_step(self.model, self.run, tok, cache,
+                                        S + i)
+            tok = torch.argmax(logits, -1)[:, None]
+            out_tokens.append(tok)
+        toks = torch.cat(out_tokens, dim=1).cpu()
+        self._sync()
+        dt = time.perf_counter() - t0
+        self.now += dt
+
+        kwh = self.chip_count * self.chip_power_w * dt / 3.6e6
+        mg_total = kwh * self._ci() * 1e3
+        done = []
+        for j, r in enumerate(batch_reqs):
+            done.append(Completion(
+                rid=r.rid,
+                tokens=toks[j, :r.max_new_tokens].tolist(),
+                latency_s=dt,
+                emissions_mg=mg_total / max(n, 1),
+                site=self.site))
+        self.completions.extend(done)
+        return done

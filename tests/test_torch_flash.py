@@ -1,0 +1,190 @@
+"""The port's flash attention against the reference's: the plain version
+against ``repro.kernels.ref.flash_attention_ref`` and against the Pallas
+kernel (``repro.kernels.ops.flash_attention``, interpret mode, as
+``tests/test_kernels.py`` runs it), the wrapper's dispatch, the tolerance
+``chip_smoke.py`` holds the CUDA kernel to, and — on a GPU — the kernel
+against its plain version.
+
+f32 inputs are unit normals made with numpy; 1e-5 absolute covers the f32
+sum-order differences of two softmax implementations over <= 300 keys.
+"""
+import math
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+
+REPO = Path(__file__).resolve().parents[1]
+
+# (B, T, Hq, Hkv, d, window): all causal
+CASES = {
+    "causal": (2, 256, 4, 4, 32, None),
+    "window": (1, 200, 2, 2, 64, 64),
+    "gqa_2to1": (2, 256, 4, 2, 32, None),
+    "ragged_gqa_window": (1, 300, 4, 2, 16, 100),
+}
+
+
+def _inputs(case, dtype=torch.float32, seed=0):
+    B, T, Hq, Hkv, d, _ = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.tensor(rng.standard_normal(s), dtype=torch.float32)
+               .to(dtype) for s in ((B, T, Hq, d), (B, T, Hkv, d),
+                                    (B, T, Hkv, d)))
+    return q, k, v
+
+
+def _jax_reference():
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops, ref
+    return jnp, ops, ref
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plain_matches_jnp_oracle(name):
+    jnp, _, ref = _jax_reference()
+    q, k, v = _inputs(CASES[name])
+    window = CASES[name][-1]
+    want = ref.flash_attention_ref(
+        *(jnp.asarray(x.numpy().transpose(0, 2, 1, 3)) for x in (q, k, v)),
+        causal=True, window=window)
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want).transpose(0, 2, 1, 3),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plain_matches_pallas_kernel(name):
+    jnp, ops, _ = _jax_reference()
+    q, k, v = _inputs(CASES[name])
+    window = CASES[name][-1]
+    want = ops.flash_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                               True, window)
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+def test_reference_pallas_attends_its_padding_when_not_causal():
+    """Reference caveat: ``ops.py`` pads T=100 to 128 and the kernel masks
+    by the padded length, so non-causal queries attend 28 zero keys. The
+    port masks by the true length and matches the jnp oracle."""
+    jnp, ops, ref = _jax_reference()
+    q, k, v = _inputs((1, 100, 2, 2, 16, None), seed=3)
+    got = fa.flash_attention(q, k, v, causal=False)
+    pallas = np.asarray(ops.flash_attention(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)), False, None))
+    oracle = np.asarray(ref.flash_attention_ref(
+        *(jnp.asarray(x.numpy().transpose(0, 2, 1, 3)) for x in (q, k, v)),
+        causal=False)).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), oracle, atol=1e-5, rtol=0)
+    assert np.abs(pallas - oracle).max() > 0.05
+
+
+def test_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
+    q, k, v = _inputs(CASES["gqa_2to1"])
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True, window=None)
+    assert fa.flash_attention.launches == before
+    torch.testing.assert_close(
+        got, fa.flash_attention_plain(q, k, v, causal=True), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError, match="group"):
+        fa.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, k, v, window=0)
+
+
+# --- the tolerance chip_smoke.py holds the CUDA kernel to --------------------
+
+def _kernel_arithmetic(q, k, v, window, *, split_p=True, bf16_acc=False,
+                       block=64):
+    """The CUDA kernel's arithmetic in torch ([B, H, T, d], one kv head
+    per q head): online softmax over 64-key tiles in f32, P multiplied as a
+    bf16 high part plus a bf16 remainder (``split_p``) or as one bf16
+    (the usual flash design), the accumulator optionally kept in bf16."""
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+    B, H, T, d = q.shape
+    i = torch.arange(T)[:, None]
+    j = torch.arange(T)[None, :]
+    mask = j <= i
+    if window is not None:
+        mask &= (i - j) < window
+    m = torch.full((B, H, T), -math.inf)
+    l = torch.zeros(B, H, T)
+    acc = torch.zeros(B, H, T, d)
+    for k0 in range(0, T, block):
+        s = (q @ k[:, :, k0:k0 + block].transpose(-1, -2)) / math.sqrt(d)
+        s = s.masked_fill(~mask[:, k0:k0 + block], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        ref = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - ref[..., None])
+        corr = torch.exp(m - ref)
+        l = l * corr + p.sum(-1)
+        hi = bf(p)
+        pv = hi @ v[:, :, k0:k0 + block]
+        if split_p:
+            pv = pv + bf(p - hi) @ v[:, :, k0:k0 + block]
+        acc = acc * corr[..., None] + pv
+        if bf16_acc:
+            acc = bf(acc)
+        m = m_new
+    return bf(acc / l[..., None])
+
+
+def test_chip_tolerance_passes_the_kernel_arithmetic_and_fails_faults():
+    """``chip_smoke.py``'s bound on the kernel's relative RMS error against
+    its plain version: the kernel's own arithmetic stays well inside it;
+    P rounded to one bf16, an accumulator in bf16, or a dropped window
+    mask break it (1024 tokens, head_dim 240, window 512)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.tensor(rng.standard_normal((1, 2, 1024, 240)),
+                            dtype=torch.float32)
+               .to(torch.bfloat16).float() for _ in range(3))
+    window = 512
+    plain = fa.flash_attention_plain(
+        *(x.transpose(1, 2) for x in (q, k, v)), causal=True,
+        window=window).transpose(1, 2).to(torch.bfloat16).float()
+
+    def rel_rms(x):
+        return float((x - plain).norm() / plain.norm())
+
+    tol = chip_smoke.FLASH_REL_RMS_TOL
+    assert rel_rms(_kernel_arithmetic(q, k, v, window)) < tol / 3
+    assert rel_rms(_kernel_arithmetic(q, k, v, window, split_p=False)) > tol
+    assert rel_rms(_kernel_arithmetic(q, k, v, window, bf16_acc=True)) > tol
+    assert rel_rms(_kernel_arithmetic(q, k, v, None)) > tol
+
+
+# --- on the card --------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CASES)
+def test_kernel_matches_plain_on_the_card(name):
+    """The CUDA kernel against its plain version in bf16, to the bound
+    ``chip_smoke.py`` uses at the serving shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    q, k, v = (x.cuda() for x in _inputs(CASES[name], torch.bfloat16))
+    window = CASES[name][-1]
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    err = chip_smoke.flash_errors(got, want)
+    assert err["rel_rms_err"] <= chip_smoke.FLASH_REL_RMS_TOL, err
+    assert err["max_abs_err"] <= err["max_abs_tol"], err
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention(q.float(), k.float(), v.float())

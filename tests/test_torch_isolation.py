@@ -12,8 +12,13 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import get_reduced
+from repro_torch.configs.base import RunConfig
 from repro_torch.core.scheduler import grid_cuda, overlay
 from repro_torch.core.scheduler.planner import TorchCarbonPlanner
+from repro_torch.launch import serve as serve_launch
+from repro_torch.models import layers
+from repro_torch.runtime.serve_loop import Server
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -22,6 +27,10 @@ FTNS = [overlay.FTN("uc", "skylake", 10.0),
         overlay.FTN("tacc", "cascade_lake", 10.0)]
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                         re.MULTILINE)
+# library attention and compilers stand in for no kernel of the port
+_NOT_A_KERNEL = re.compile(r"scaled_dot_product_attention|torch\.compile|"
+                           r"cudnn|flash_attn|xformers")
+SMALL = get_reduced("gemma3-12b", layers=2)
 
 
 def _module_name(path: Path) -> str:
@@ -42,7 +51,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
-    assert len(names) >= 15
+    assert len(names) >= 30
 
 
 @pytest.mark.parametrize(
@@ -61,6 +70,37 @@ def test_without_cuda_the_planner_raises_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert TorchCarbonPlanner(FTNS, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_port_file_calls_library_attention_or_a_compiler(path):
+    assert not _NOT_A_KERNEL.findall(path.read_text()), path
+
+
+def test_without_cuda_serving_raises_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(SMALL)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(SMALL, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_launch.main(["--requests", "1", "--prompt-len", "4",
+                           "--max-new", "2"])
+    srv = Server(SMALL, device="cpu")
+    assert srv.device.type == "cpu" and srv.run.attn_impl == "flash"
+    assert serve_launch.main(["--requests", "1", "--prompt-len", "4",
+                              "--max-new", "2", "--device", "cpu"]) == 0
+
+
+def test_serving_refuses_the_pallas_attention_impl():
+    with pytest.raises(ValueError, match="attn_impl"):
+        Server(SMALL, RunConfig(arch="gemma3-12b", attn_impl="pallas"),
+               device="cpu")
+    q = torch.zeros(1, 4, 2, 16)
+    pos = torch.arange(4)
+    with pytest.raises(ValueError, match="attn_impl"):
+        layers.attention(q, q, q, q_pos=pos, kv_pos=pos, impl="pallas")
 
 
 def test_planner_rejects_unknown_backends():
