@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
 source, started together, ``sm_90a``, into ``build/repro_torch_kernels/``)
-and drives the port's two paths:
+and drives the port's three paths:
 
 * fleet admission planning: the planner's two kernels against their plain
   torch versions on the tables of a real 4096-job admission window, then
@@ -17,7 +17,14 @@ and drives the port's two paths:
   against its plain version at the prefill's shapes (global, window 1024
   and a ragged length), then ``Server`` answering 8 requests of 2048-token
   prompts with 32 new tokens each, the cached logits checked against a
-  plain full forward and the flash prefill against the naive one.
+  plain full forward and the flash prefill against the naive one;
+* training mamba2-370m at full width and depth (48 layers, d_model 1024,
+  vocab 50280, 32 SSD heads of 64, d_state 128, chunk 256, random weights
+  from a seed) on 8 x 2048-token batches: the SSD chunk-scan kernel
+  against its plain version at the training shapes, one train step on the
+  kernel path against the same step on the plain chunked path, then
+  ``Trainer`` for 6 steps with a checkpoint every 3 and a bit-exact
+  restore, and a ``torch.profiler`` split of one step.
 
 Every phase that fails raises, so the exit code is non-zero; without a
 CUDA device the script exits 2 and prints no result. The last line of
@@ -53,6 +60,7 @@ BF16_TC_FLOPS = 989e12
 REPO = Path(__file__).resolve().parent
 KERNEL_SRC = "src/repro_torch/csrc/planner_kernels.cu"
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
+SSD_SRC = "src/repro_torch/csrc/ssd_scan.cu"
 
 # serving: gemma3-12b at full width and depth, 8 requests in static batches
 # of 4, 2048-token prompts, 32 new tokens each
@@ -61,6 +69,18 @@ ARCH = "gemma3-12b"
 SERVE_BATCH, N_REQUESTS, PROMPT_LEN, MAX_NEW = 4, 8, 2048, 32
 S_MAX = 2080
 SEED = 0
+# training: mamba2-370m at full width and depth, 8 x 2048 tokens a step,
+# 6 Trainer steps with a checkpoint every 3 (under build/, git-ignored)
+TRAIN_ARCH = "mamba2-370m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CKPT_EVERY = 8, 2048, 6, 3
+TRAIN_CKPT_DIR = REPO / "build" / "chip_smoke_train_ckpt"
+# One step on the kernel path against the same step on the plain chunked
+# path, same weights and batch, bf16: the two scans' y differ only by bf16
+# rounding flips (relative RMS ~1e-4 per layer, SSD_Y_REL_RMS_TOL), which
+# 48 layers carry into the loss (a mean over 16,384 tokens) and into the
+# gradient's global norm: ~1e-4 and ~1e-3 relative at most.
+STEP_LOSS_TOL_REL = 1e-4
+STEP_GNORM_TOL_REL = 1e-3
 # flash check at the prefill's shapes: (name, T = S, window)
 FLASH_CASES = (("global", PROMPT_LEN, None), ("local", PROMPT_LEN, 1024),
                ("ragged", 2000, None))
@@ -81,6 +101,15 @@ FLASH_REL_RMS_TOL = 5e-4
 # position or mask that is wrong moves logits by O(max |logit|), as the
 # off-by-one control shows.
 LOGIT_TOL_REL = 5e-2
+# The SSD kernel against its plain version (ssd_chunked) on the same bf16
+# inputs. Both compute in f32 and differ by sum order and by the kernel's
+# own cumsum and exp: y (rounded to bf16 by both) differs only where a
+# rounding boundary falls between them, h (f32) by f32 rounding. Bounds on
+# ||kernel - plain|| / ||plain||: a state that is not carried across
+# chunks, an exclusive cumsum, a missing dt_j weight or a bf16 accumulator
+# each break one of them (tests/test_torch_ssd.py emulates each).
+SSD_Y_REL_RMS_TOL = 1e-3
+SSD_H_REL_RMS_TOL = 1e-4
 
 
 def gpu_line() -> str:
@@ -327,6 +356,27 @@ def flash_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
             "max_abs_tol": 2.0 ** (math.floor(math.log2(top)) - 7)
             if top > 0 else 0.0,
             "rel_rms_err": float((g - w).norm() / w.norm())}
+
+
+def ssd_errors(y: torch.Tensor, h: torch.Tensor, y_plain: torch.Tensor,
+               h_plain: torch.Tensor) -> dict:
+    """The SSD kernel's (y, h) against its plain version's: relative RMS
+    errors (see SSD_Y_REL_RMS_TOL, SSD_H_REL_RMS_TOL), the largest absolute
+    error of y and its bound (one bf16 ulp of the largest plain output)."""
+    g, w = y.float(), y_plain.float()
+    top = float(w.abs().max())
+    return {"y_rel_rms_err": float((g - w).norm() / w.norm()),
+            "h_rel_rms_err": float((h.float() - h_plain.float()).norm()
+                                   / h_plain.float().norm()),
+            "max_abs_err": float((g - w).abs().max()),
+            "max_abs_tol": 2.0 ** (math.floor(math.log2(top)) - 7)
+            if top > 0 else 0.0}
+
+
+def ssd_ok(err: dict) -> bool:
+    return (err["y_rel_rms_err"] <= SSD_Y_REL_RMS_TOL
+            and err["h_rel_rms_err"] <= SSD_H_REL_RMS_TOL
+            and err["max_abs_err"] <= err["max_abs_tol"])
 
 
 def flash_bound_ms(b: int, t: int, hq: int, hkv: int, d: int,
@@ -624,6 +674,301 @@ def profile_serving(M, srv, tokens) -> dict:
             "decode_3_steps": split(kernels(prof_d), dec_s)}
 
 
+# --- training mamba2-370m through the SSD kernel ----------------------------
+
+def ssd_bound_ms(b: int, s: int, nh: int, hd: int, n: int,
+                 chunk: int) -> tuple:
+    """Least time for one SSD scan on these inputs: per (batch, head,
+    chunk) C B^T and M X over the Q(Q+1)/2 pairs at or below the diagonal,
+    C h^T and the state update, at the bf16 dense tensor-core peak (x, B
+    and C are bf16), against x, B, C, dt and A read once and y and the
+    final h written once."""
+    pairs = chunk * (chunk + 1) // 2
+    per = pairs * 2 * n + pairs * 2 * hd + chunk * hd * 2 * n \
+        + hd * n * 2 * chunk
+    ops = per * b * nh * (s // chunk)
+    nbytes = (2 * 2 * b * s * nh * hd + 2 * 2 * b * s * n + 4 * b * s * nh
+              + 4 * nh + 4 * b * nh * hd * n)
+    ops_s, bytes_s = ops / BF16_TC_FLOPS, nbytes / HBM_BPS
+    return 1e3 * max(ops_s, bytes_s), (
+        "operations" if ops_s >= bytes_s else "bytes"), ops
+
+
+def ssd_training_inputs(cfg, gen):
+    """Inputs at the training shapes with the model's ranges: x, B, C unit
+    normals in bf16; dt = softplus(normal / 2 + dt_bias), dt_bias drawn as
+    the init draws it; A = -Uniform[1, 16], as exp(A_log) at init."""
+    s = cfg.ssm
+    nh, hd, n = s.n_heads(cfg.d_model), s.headdim, s.d_state
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    x = torch.randn(shape + (nh, hd), generator=gen, device=DEVICE)
+    bias = torch.log(torch.expm1(torch.empty(nh, device=DEVICE).uniform_(
+        1e-3, 1e-1, generator=gen)))
+    dt = torch.nn.functional.softplus(
+        torch.randn(shape + (nh,), generator=gen, device=DEVICE) * 0.5 + bias)
+    A = -torch.empty(nh, device=DEVICE).uniform_(1.0, 16.0, generator=gen)
+    bm, cm = (torch.randn(shape + (1, n), generator=gen, device=DEVICE)
+              for _ in range(2))
+    return (x.to(torch.bfloat16), dt, A, bm.to(torch.bfloat16),
+            cm.to(torch.bfloat16))
+
+
+def check_ssd(ssd, cfg) -> dict:
+    """The SSD kernel against its plain version (``ssd_chunked``) at the
+    training shapes; no single PyTorch call computes the scan, so there is
+    no library yardstick."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    ins = ssd_training_inputs(cfg, gen)
+    chunk = cfg.ssm.chunk_size
+
+    def kernel():
+        return ssd.ssd_scan(*ins, chunk)
+
+    def plain():
+        return ssd.ssd_chunked(*ins, chunk)
+
+    (y, h), (y_p, h_p) = kernel(), plain()
+    torch.cuda.synchronize()
+    err = ssd_errors(y, h, y_p, h_p)
+    del y, h, y_p, h_p
+    if not ssd_ok(err):
+        raise RuntimeError(f"SSD kernel disagrees with its plain version: "
+                           f"{err}")
+    x = ins[0]
+    bound, by, ops = ssd_bound_ms(*x.shape, cfg.ssm.d_state, chunk)
+    case = {"x": list(x.shape), "B": list(ins[3].shape), "chunk": chunk,
+            **err, "tol_y_rel_rms": SSD_Y_REL_RMS_TOL,
+            "tol_h_rel_rms": SSD_H_REL_RMS_TOL,
+            "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "flop": ops,
+            "bound_ms_f32_cuda_cores": 1e3 * ops / F32_FLOPS}
+    case["bound_share"] = bound / case["ms"]
+    emit({"ssd_check": case})
+    del ins
+    torch.cuda.empty_cache()
+    return case
+
+
+def loss_and_gnorm(M, adamw, model, run, batch) -> tuple:
+    """The loss of one batch and the global norm of its gradient with
+    respect to every parameter (no update)."""
+    params = [p for _, p in model.named_parameters()]
+    loss, _ = M.loss_fn(model, run, batch)
+    grads = torch.autograd.grad(loss, params)
+    gnorm = adamw.global_norm(grads)
+    torch.cuda.synchronize()
+    return float(loss.detach()), float(gnorm)
+
+
+def check_train_step(M, adamw, ssd, cfg, run, batch) -> dict:
+    """One train step's loss and gradient norm on the kernel path
+    (``flash``) against the plain chunked path (``blockwise``, the
+    reference's ``use_kernel=False``), same weights and batch."""
+    model = M.build_model(cfg, seed=SEED, device=DEVICE).requires_grad_(True)
+    before = ssd.ssd_scan.launches
+    t0 = time.perf_counter()
+    loss_k, gn_k = loss_and_gnorm(M, adamw, model, run, batch)
+    kernel_s = time.perf_counter() - t0
+    launches = ssd.ssd_scan.launches - before
+    t0 = time.perf_counter()
+    loss_p, gn_p = loss_and_gnorm(
+        M, adamw, model, dataclasses.replace(run, attn_impl="blockwise"),
+        batch)
+    plain_s = time.perf_counter() - t0
+    res = {"loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+           "gnorm_kernel": gn_k, "gnorm_plain": gn_p,
+           "gnorm_rel_diff": abs(gn_k - gn_p) / abs(gn_p),
+           "tol_loss_rel": STEP_LOSS_TOL_REL,
+           "tol_gnorm_rel": STEP_GNORM_TOL_REL,
+           "kernel_path_s": kernel_s, "plain_path_s": plain_s,
+           "ssd_launches_kernel_path": launches}
+    emit({"train_step_check": res})
+    del model
+    torch.cuda.empty_cache()
+    if not (math.isfinite(loss_k) and math.isfinite(gn_k)
+            and res["loss_rel_diff"] <= STEP_LOSS_TOL_REL
+            and res["gnorm_rel_diff"] <= STEP_GNORM_TOL_REL
+            and launches == 2 * cfg.n_layers):
+        raise RuntimeError(f"the kernel path's train step disagrees with "
+                           f"the plain one: {res}")
+    return res
+
+
+class StepProbe:
+    """Instruments ``Trainer.step_fn`` without changing it: a synchronized
+    host clock, the SSD launches, the peak device memory and the site and
+    simulated time of every step."""
+
+    def __init__(self, tr, ssd):
+        self.tr, self.ssd, self.orig = tr, ssd, tr.step_fn
+        self.rows: list = []
+
+    def __enter__(self):
+        def timed(model, opt, batch):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = self.ssd.ssd_scan.launches
+            t0 = time.perf_counter()
+            m = self.orig(model, opt, batch)
+            torch.cuda.synchronize()
+            self.rows.append({
+                "wall_s": time.perf_counter() - t0,
+                "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "ssd_launches": self.ssd.ssd_scan.launches - before,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "site": self.tr.site, "t": self.tr.t})
+            return m
+        self.tr.step_fn = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.tr.step_fn = self.orig
+
+
+def train(tl, ssd, cfg, run, power_w: float) -> tuple:
+    """The training main path: ``Trainer`` runs TRAIN_STEPS steps with a
+    checkpoint every CKPT_EVERY; a fresh ``Trainer`` on the same directory
+    restores the last step bit for bit. Returns the trainer and the SSD
+    launches counted over the path."""
+    import shutil
+    from repro_torch.core.carbon.intensity import calibrated_ci
+    from repro_torch.models.params import count_params
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    loop = tl.TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_every=CKPT_EVERY,
+                              ckpt_dir=str(TRAIN_CKPT_DIR), log_every=1,
+                              chip_power_w=power_w)
+    t0 = time.perf_counter()
+    tr = tl.Trainer(cfg, run, loop, batch_override=TRAIN_BATCH,
+                    seq_override=TRAIN_SEQ, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tr.params.values())
+    emit({"train_setup": {
+        "arch": cfg.name, "layers": len(tr.model.decoder.layers),
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "ssd_heads": cfg.ssm.n_heads(cfg.d_model),
+        "headdim": cfg.ssm.headdim, "d_state": cfg.ssm.d_state,
+        "chunk": cfg.ssm.chunk_size, "params": n_params,
+        "spec_params": count_params(cfg),
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": run.remat,
+        "init_s": time.perf_counter() - t0, "site": tr.site,
+        "chip_power_w": power_w}})
+    if n_params != count_params(cfg) \
+            or len(tr.model.decoder.layers) != cfg.n_layers:
+        raise RuntimeError("the trained model is not mamba2-370m at full "
+                           "size")
+    ssd.ssd_scan.launches = 0
+    with StepProbe(tr, ssd) as probe:
+        t0 = time.perf_counter()
+        out = tr.run_steps()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ssd.ssd_scan.launches
+    per_step = cfg.n_layers * (2 if run.remat != "none" else 1)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i, r in enumerate(probe.rows):
+        ci = calibrated_ci(tr.cluster.zone_of(r["site"]), r["t"])
+        emit({"train_step": i + 1, "wall_s": r["wall_s"],
+              "tokens_per_s": tokens / r["wall_s"], "loss": r["loss"],
+              "grad_norm": r["grad_norm"], "ssd_launches": r["ssd_launches"],
+              "ssd_launches_expected": per_step, "peak_gb": r["peak_gb"],
+              "site": r["site"], "ci_g_per_kwh": ci,
+              "g_co2": r["wall_s"] * power_w / 3.6e6 * ci})
+    emit({"train_main_path": {
+        "steps": len(probe.rows), "final_step": out["final_step"],
+        "ssd_launches": launches, "wall_s": wall,
+        "tokens_per_s": tokens * len(probe.rows) / wall,
+        "events": out["events"], "final_loss": out["final_loss"]}})
+    if len(probe.rows) != TRAIN_STEPS or out["final_step"] != TRAIN_STEPS:
+        raise RuntimeError(f"trainer ran {len(probe.rows)} steps, not "
+                           f"{TRAIN_STEPS}")
+    if not all(math.isfinite(r["loss"]) for r in probe.rows):
+        raise RuntimeError("a training loss is not finite")
+    if any(r["ssd_launches"] != per_step for r in probe.rows) \
+            or launches != per_step * TRAIN_STEPS:
+        raise RuntimeError(f"SSD launches {launches} != {cfg.n_layers} "
+                           f"layers x 2 (remat) x {TRAIN_STEPS} steps")
+    t0 = time.perf_counter()
+    back = tl.Trainer(cfg, run, loop, batch_override=TRAIN_BATCH,
+                      seq_override=TRAIN_SEQ, device=DEVICE)
+    same = all(torch.equal(back.params[k], v) for k, v in tr.params.items())
+    emit({"train_restore": {"start_step": back.start_step,
+                            "events": back.events, "params_bit_equal": same,
+                            "opt_step": back.opt.step,
+                            "restore_s": time.perf_counter() - t0}})
+    if back.start_step != TRAIN_STEPS or not same \
+            or back.opt.step != TRAIN_STEPS:
+        raise RuntimeError("the restored trainer differs from the trained "
+                           "one")
+    del back
+    torch.cuda.empty_cache()
+    return tr, launches
+
+
+PLAIN_BWD = "ssd_plain_backward"
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+
+
+def profile_training(ops, tr) -> dict:
+    """Device time of one train step (``torch.profiler``), split
+    exclusively by kernel: everything launched inside the plain SSD
+    backward (a ``record_function`` range around ``_SSDScan.backward``:
+    its einsums' GEMMs and its elementwise work), and outside it the
+    GEMMs, the SSD kernel and all other device work; the rest of the
+    wall time is host gaps (the device's idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    orig = ops._SSDScan.backward
+
+    def labelled(ctx, gy, gh):
+        with record_function(PLAIN_BWD):
+            return orig(ctx, gy, gh)
+
+    batch = tr.pipeline.next_batch(tr.t)
+    ops._SSDScan.backward = staticmethod(labelled)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.step_fn(tr.model, tr.opt, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops._SSDScan.backward = orig
+
+    def inside(evt) -> bool:
+        while evt is not None:
+            if evt.name == PLAIN_BWD:
+                return True
+            evt = evt.cpu_parent
+        return False
+
+    split = {"gemm_ms": 0.0, "ssd_kernel_ms": 0.0, "other_ms": 0.0,
+             "ssd_plain_backward_ms": 0.0}
+    by_name: dict = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        in_bwd = inside(evt)
+        for k in evt.kernels:
+            ms = k.duration / 1e3
+            by_name[k.name] = by_name.get(k.name, 0.0) + ms
+            key = ("ssd_plain_backward_ms" if in_bwd
+                   else "ssd_kernel_ms" if "ssd_scan_kernel" in k.name
+                   else "gemm_ms" if any(w in k.name.lower()
+                                         for w in GEMM_NAMES)
+                   else "other_ms")
+            split[key] += ms
+    total = sum(split.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall_ms, "device_ms": total,
+            "busy_share": total / wall_ms, "idle_share": 1 - total / wall_ms,
+            **split, "top": [[k[:90], v] for k, v in top]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -636,8 +981,12 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import model as M
+    from repro_torch.optim import adamw
     from repro_torch.runtime import serve_loop as sl
+    from repro_torch.runtime import train_loop as tl
 
     # 1. device
     card = gpu_line()
@@ -648,9 +997,10 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    built = build(grid_cuda._SOURCE, fa._SOURCE)
+    built = build(grid_cuda._SOURCE, fa._SOURCE, ssd._SOURCE)
     grid_cuda._library()
     fa._library()
+    ssd._library()
     emit({"build_s": time.perf_counter() - t0,
           "libraries": {n: lib.name for n, (lib, _) in built.items()}})
     for _, log in built.values():
@@ -750,8 +1100,27 @@ def main() -> int:
     # 8. logits: cached path against the plain full forward
     check_logits(M, srv, probe)
     emit({"profile": profile_serving(M, srv, probe.epochs[0]["tokens"])})
+    del srv, probe
+    torch.cuda.empty_cache()
 
-    # 9. results
+    # 9. training mamba2-370m: the SSD kernel against its plain version, one
+    # step on the kernel path against the plain path, then the Trainer
+    tcfg = get_config(TRAIN_ARCH)
+    ssd_case = check_ssd(ssd, tcfg)
+    trun = RunConfig(arch=TRAIN_ARCH, attn_impl="flash", remat="block",
+                     seed=SEED, warmup_steps=2, total_steps=TRAIN_STEPS)
+    from repro_torch.data.pipeline import TokenPipeline
+    batch = TokenPipeline(vocab_size=tcfg.vocab_size, seq_len=TRAIN_SEQ,
+                          batch=TRAIN_BATCH, seed=SEED,
+                          device=DEVICE).next_batch()
+    check_train_step(M, adamw, ssd, tcfg, trun, batch)
+    del batch
+    tr, ssd_launches = train(tl, ssd, tcfg, trun, power_limit_w(card))
+    emit({"train_profile": profile_training(ops, tr)})
+    del tr
+    torch.cuda.empty_cache()
+
+    # 10. results
     worst = max(flash_cases, key=lambda c: c["rel_rms_err"])
     kernels.append(
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
@@ -765,6 +1134,14 @@ def main() -> int:
          "cases": {c["case"]: {k: c[k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
              "rel_rms_err")} for c in flash_cases}})
+    kernels.append(
+        {"name": "ssd_scan", "route": "cuda", "source": SSD_SRC,
+         "replaces": "src/repro/kernels/ssd_scan.py:26",
+         "launches": ssd_launches,
+         **{k: ssd_case[k] for k in (
+             "max_abs_err", "y_rel_rms_err", "h_rel_rms_err", "ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "bound_ms_f32_cuda_cores")}})
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

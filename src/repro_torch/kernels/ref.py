@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,3 +34,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bksd->bkgtd", p, v.float())
     return out.reshape(B, Hq, T, d).to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (non-chunked) SSD recurrence, the ground truth.
+
+    x: [B,S,nh,hd]; dt: [B,S,nh] (>0); A: [nh] (<0); Bm/Cm: [B,S,N]
+    returns (y [B,S,nh,hd] in x's dtype, h_final [B,nh,hd,N] f32). One
+    step per token: slow, for the tests only."""
+    bsz, s, nh, hd = x.shape
+    f32 = torch.float32
+    h = torch.zeros((bsz, nh, hd, Bm.shape[-1]), dtype=f32, device=x.device)
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].to(f32)
+        da = torch.exp(dtt * A.to(f32)[None])
+        inc = torch.einsum("bh,bhp,bn->bhpn", dtt, x[:, t].to(f32),
+                           Bm[:, t].to(f32))
+        h = h * da[..., None, None] + inc
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t].to(f32)))
+    return torch.stack(ys, dim=1).to(x.dtype), h

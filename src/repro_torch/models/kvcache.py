@@ -56,7 +56,7 @@ def zero_cache(cfg: ModelConfig, batch: int, s_max: int, *,
     for spec in layer_specs(cfg):
         if spec.mixer != "attn":
             raise NotImplementedError(_NOT_PORTED.format("SSM",
-                                                         "training"))
+                                                         "SSM serving"))
         shape = (batch, cache_sizes(cfg, spec, s_max), cfg.n_kv_heads,
                  cfg.head_dim)
         out.append({"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -16,7 +16,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels import ops
 
 NEG_INF = -2.0e38  # fp32-safe
 ATTN_IMPLS = ("naive", "blockwise", "flash")
@@ -141,7 +141,7 @@ def attention(q, k, v, *, q_pos, kv_pos, causal: bool = True,
     scale = 1.0 / math.sqrt(q.shape[-1])
     T, S = q.shape[1], k.shape[1]
     if impl == "flash" and T > 1 and T == S:
-        return flash_attention(q, k, v, causal=causal, window=window)
+        return ops.flash_attention(q, k, v, causal, window)
     if T == 1 or impl == "naive" or S <= block_kv:
         return _sdpa(q, k, v, _mask(q_pos, kv_pos, causal, window), scale)
     return _blockwise_sdpa(q, k, v, q_pos, kv_pos, causal, window, scale,

@@ -5,7 +5,7 @@ Batch layouts per shape kind, as in the reference's ``models/model.py``:
   train:   {tokens [B,S], targets [B,S]}
   prefill: {tokens [B,S]}                   -> (last_logits, cache)
   decode:  {token [B,1], cache, cur}        -> (logits, cache)
-This slice serves the text-only dense family.
+The text-only dense family serves and trains; the ssm family trains.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
@@ -66,6 +67,48 @@ def unembed(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     w = (model.embed.tok.T if model.cfg.tie_embeddings
          else model.lm_head)
     return x @ w.to(x.dtype)
+
+
+# ------------------------------------------------------------------ loss ---
+def _nll_sum(model: Transformer, x: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+    logits = unembed(model, x).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_xent(model: Transformer, x: torch.Tensor, targets: torch.Tensor,
+                 chunk: int = 0) -> Tuple[torch.Tensor, float]:
+    """Cross-entropy over next-token targets; with ``chunk`` dividing the
+    sequence (and shorter than it) a loop over sequence chunks, each
+    checkpointed, so no more than one chunk's [B, chunk, V] f32 logits is
+    live in the forward or the backward pass. Returns (sum_nll, n_tokens).
+    """
+    B, S, _ = x.shape
+    if chunk <= 0 or S % chunk != 0 or S == chunk:
+        return _nll_sum(model, x, targets), float(B * S)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        xs, ts = x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
+        tot = tot + (checkpoint(_nll_sum, model, xs, ts, use_reentrant=False)
+                     if torch.is_grad_enabled() else _nll_sum(model, xs, ts))
+    return tot, float(B * S)
+
+
+def loss_fn(model: Transformer, run: RunConfig,
+            batch: Mapping[str, torch.Tensor], *, xent_chunk: int = 2048
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy of the text-only families (no MoE
+    auxiliary loss: MoE comes with a later slice). Returns (loss, {"nll",
+    "aux"})."""
+    check_attn_impl(run.attn_impl)
+    x = model.decoder(embed(model, batch["tokens"]), run, mode="train")
+    nll_sum, denom = chunked_xent(model, x, batch["targets"], xent_chunk)
+    loss = nll_sum / denom
+    return loss, {"nll": loss.detach(),
+                  "aux": torch.zeros((), dtype=torch.float32,
+                                     device=loss.device)}
 
 
 # ------------------------------------------------------------- serving -----

@@ -5,8 +5,14 @@ pattern with stacked parameters; here the stack is a Python loop over one
 module per layer (layer ``g * period + i`` is the reference's group ``g``,
 sub-layer ``i``). One code path serves train (the plain full forward),
 prefill and decode — the mode only changes positions, masking source, and
-cache handling. This slice runs the ``dense`` family; the others raise
-until their slice of the port.
+cache handling. The ``dense`` family runs every mode; the ``ssm`` family
+(Mamba-2) trains, and its prefill and decode raise until the SSM serving
+item of the port; the other families raise until their slice.
+
+With ``run.remat != "none"`` a training forward checkpoints each group of
+``period`` layers (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` around a scan group): the backward pass reruns the
+group's forward, kernels included.
 """
 from __future__ import annotations
 
@@ -14,12 +20,14 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import kvcache as KC
 from repro_torch.models import params as P
 from repro_torch.models.layers import (apply_rope, attention,
                                        attention_projections, ffn, rms_norm)
+from repro_torch.models.ssm import NOT_PORTED, mamba_block
 
 Cache = Dict[str, torch.Tensor]
 
@@ -110,22 +118,43 @@ def _ffn_sublayer(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     return ffn(p, h, gated=cfg.ffn_gated)
 
 
+def _ssm_sublayer(cfg: ModelConfig, run: RunConfig,
+                  p: Dict[str, torch.Tensor], x: torch.Tensor, *,
+                  mode: str) -> torch.Tensor:
+    """Mamba-2 sub-layer; the CUDA SSD kernel runs on the port's kernel
+    path (``attn_impl == "flash"``, the reference's ``"pallas"``)."""
+    if mode != "train":
+        raise NotImplementedError(NOT_PORTED.format(mode))
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    out, _ = mamba_block(p, h, cfg.ssm, norm_eps=cfg.norm_eps,
+                         use_kernel=(run.attn_impl == "flash"))
+    return out
+
+
 # -------------------------------------------------------------- the stack ---
 class DecoderLayer(nn.Module):
-    """One attention sub-layer and its dense FFN."""
+    """One mixer sub-layer (attention or Mamba-2) and its dense FFN."""
 
     def __init__(self, cfg: ModelConfig, spec: P.SubLayerSpec,
                  state: Mapping[str, torch.Tensor], prefix: str):
         super().__init__()
         self.cfg, self.spec = cfg, spec
-        self.attn = _group(state, prefix + "attn.")
+        if spec.mixer == "attn":
+            self.attn = _group(state, prefix + "attn.")
+        else:
+            self.ssm = _group(state, prefix + "ssm.")
         if spec.has_ffn:
             self.ffn = _group(state, prefix + "ffn.")
 
     def forward(self, x: torch.Tensor, run: RunConfig, *, mode: str,
                 cur: Optional[int], cache: Optional[Cache]) -> torch.Tensor:
-        x = x + _attn_sublayer(self.cfg, run, self.spec, self.attn.params(),
-                               x, mode=mode, cur=cur, cache=cache)
+        if self.spec.mixer == "attn":
+            x = x + _attn_sublayer(self.cfg, run, self.spec,
+                                   self.attn.params(), x, mode=mode,
+                                   cur=cur, cache=cache)
+        else:
+            x = x + _ssm_sublayer(self.cfg, run, self.ssm.params(), x,
+                                  mode=mode)
         if self.spec.has_ffn:
             x = x + _ffn_sublayer(self.cfg, self.ffn.params(), x)
         return x
@@ -136,10 +165,11 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor]):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"the {cfg.family!r} family comes with a later slice of the "
-                f"port (ROADMAP.md, queue 1); this slice runs 'dense'")
+                f"port (ROADMAP.md, queue 1); the port runs 'dense' and "
+                f"trains 'ssm'")
         self.cfg = cfg
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, spec, state, f"decoder.layers.{i}.")
@@ -153,7 +183,21 @@ class Decoder(nn.Module):
         dict per layer) is written in place in prefill and decode."""
         if (cache is None) != (mode == "train"):
             raise ValueError("prefill and decode take a cache, train none")
-        for i, layer in enumerate(self.layers):
-            x = layer(x, run, mode=mode, cur=cur,
-                      cache=None if cache is None else cache[i])
+        remat = (mode == "train" and run.remat != "none"
+                 and torch.is_grad_enabled())
+        period = P.block_period(self.cfg)
+        for g in range(0, len(self.layers), period):
+            caches = None if cache is None else cache[g:g + period]
+            args = (x, self.layers[g:g + period], run, mode, cur, caches)
+            x = (checkpoint(_run_group, *args, use_reentrant=False)
+                 if remat else _run_group(*args))
         return rms_norm(x, self.norm, self.cfg.norm_eps)
+
+
+def _run_group(x: torch.Tensor, layers: nn.ModuleList, run: RunConfig,
+               mode: str, cur: Optional[int],
+               caches: Optional[List[Cache]]) -> torch.Tensor:
+    for i, layer in enumerate(layers):
+        x = layer(x, run, mode=mode, cur=cur,
+                  cache=None if caches is None else caches[i])
+    return x

@@ -101,6 +101,35 @@ def test_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
         fa.flash_attention(q, k, v, window=0)
 
 
+@pytest.mark.parametrize("name", ["gqa_2to1", "ragged_gqa_window"])
+def test_flash_gradients_match_jax_grad(name):
+    """d/d(q, k, v) of <o, g> through the port's ``ops.flash_attention``
+    (forward through the wrapper, backward recomputed through the plain
+    version) against ``jax.grad`` through the reference's
+    ``ops.flash_attention`` (backward through ``flash_attention_ref``),
+    causal, f32. Relative to each gradient's largest value, 1e-5 covers
+    f32 sum order over <= 300 keys."""
+    import jax
+    from repro_torch.kernels import ops as port_ops
+    jnp, ops, _ = _jax_reference()
+    case = CASES[name]
+    window = case[-1]
+    q, k, v = _inputs(case, seed=4)
+    g = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)
+    want = jax.grad(lambda q, k, v: (ops.flash_attention(q, k, v, True,
+                                                         window) * g).sum(),
+                    argnums=(0, 1, 2))(*(jnp.asarray(x.numpy())
+                                         for x in (q, k, v)))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = fa.flash_attention.launches
+    (port_ops.flash_attention(*leaves, True, window)
+     * torch.tensor(g)).sum().backward()
+    assert fa.flash_attention.launches == before
+    for x, w in zip(leaves, want):
+        w = np.asarray(w)
+        assert np.abs(x.grad.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
 # --- the tolerance chip_smoke.py holds the CUDA kernel to --------------------
 
 def _kernel_arithmetic(q, k, v, window, *, split_p=True, bf16_acc=False,
