@@ -829,14 +829,23 @@ class StepProbe:
 
 
 def train(tl, ssd, cfg, run, power_w: float) -> tuple:
-    """The training main path: ``Trainer`` runs TRAIN_STEPS steps with a
-    checkpoint every CKPT_EVERY; a fresh ``Trainer`` on the same directory
-    restores the last step bit for bit. Returns the trainer and the SSD
-    launches counted over the path."""
+    """The training main path (:func:`train_and_restore`) in a fresh
+    checkpoint directory, which is deleted again afterwards."""
     import shutil
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    try:
+        return train_and_restore(tl, ssd, cfg, run, power_w)
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+
+
+def train_and_restore(tl, ssd, cfg, run, power_w: float) -> tuple:
+    """``Trainer`` runs TRAIN_STEPS steps with a checkpoint every
+    CKPT_EVERY; a fresh ``Trainer`` on the same directory restores the last
+    step bit for bit. Returns the trainer and the SSD launches counted over
+    the path."""
     from repro_torch.core.carbon.intensity import calibrated_ci
     from repro_torch.models.params import count_params
-    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
     loop = tl.TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_every=CKPT_EVERY,
                               ckpt_dir=str(TRAIN_CKPT_DIR), log_every=1,
                               chip_power_w=power_w)
@@ -1140,8 +1149,7 @@ def main() -> int:
          "launches": ssd_launches,
          **{k: ssd_case[k] for k in (
              "max_abs_err", "y_rel_rms_err", "h_rel_rms_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "bound_ms_f32_cuda_cores")}})
+             "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

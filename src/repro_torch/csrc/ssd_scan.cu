@@ -47,6 +47,8 @@ namespace {
 constexpr int kThreads = 256;          // 16 x 16
 constexpr int kTile = 64;              // query rows and keys per tile
 constexpr int kRows = kTile / 16;      // query rows per thread
+// The wrapper (kernels/ssd_scan.py) checks shapes against copies of these
+// three limits: MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE.
 constexpr int kMaxQ = 256;             // largest chunk taken
 constexpr int kMaxHD = 64;             // largest head_dim taken
 constexpr int kMaxN = 128;             // largest d_state taken
@@ -303,11 +305,6 @@ extern "C" {
 int ssd_scan_smem_bytes(int q, int hd, int n) {
   return (int)make_layout(q, hd, n).total;
 }
-
-// The largest chunk, head_dim and d_state the kernel takes.
-int ssd_scan_max_chunk() { return kMaxQ; }
-int ssd_scan_max_head_dim() { return kMaxHD; }
-int ssd_scan_max_state() { return kMaxN; }
 
 // x [B, S, nh, hd] bf16, dt [B, S, nh] f32, A [nh] f32, Bm/Cm [B, S, N]
 // bf16 (one group), y [B, S, nh, hd] bf16, h_out [B, nh, hd, N] f32

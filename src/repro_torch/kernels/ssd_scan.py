@@ -29,14 +29,16 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from repro_torch._build import KernelSource, load
 
 _SOURCE = KernelSource("ssd_scan")
-MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 128   # kMaxQ, kMaxHD, kMaxN
+# The largest chunk, head_dim and d_state the kernel takes: kMaxQ, kMaxHD
+# and kMaxN in csrc/ssd_scan.cu, which must be changed with these.
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 128
 
 
 @functools.lru_cache(maxsize=1)
@@ -45,17 +47,8 @@ def _library() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssd_scan_fwd.argtypes = [ptr] * 7 + [i32] * 6 + [i64] * 13 + [ptr]
     lib.ssd_scan_fwd.restype = i32
-    for name in ("ssd_scan_max_chunk", "ssd_scan_max_head_dim",
-                 "ssd_scan_max_state"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = i32
     lib.ssd_scan_error_string.argtypes = [i32]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
-    if (lib.ssd_scan_max_chunk(), lib.ssd_scan_max_head_dim(),
-            lib.ssd_scan_max_state()) != (MAX_CHUNK, MAX_HEAD_DIM,
-                                          MAX_STATE):
-        raise RuntimeError("ssd_scan.cu and its wrapper disagree on the "
-                           "largest chunk, head_dim or d_state")
     return lib
 
 
@@ -76,8 +69,7 @@ def _segsum_decay(dt_a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
-                h0: Optional[torch.Tensor] = None
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan in f32, the plain version of :func:`ssd_scan`.
 
@@ -116,8 +108,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         bsz, nc, nh, hd, n)
 
     # cross-chunk recurrence; each chunk reads the state before it
-    h = (torch.zeros((bsz, nh, hd, n), dtype=f32, device=x.device)
-         if h0 is None else h0.to(f32))
+    h = torch.zeros((bsz, nh, hd, n), dtype=f32, device=x.device)
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)
