@@ -35,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -61,6 +62,13 @@ REPO = Path(__file__).resolve().parent
 KERNEL_SRC = "src/repro_torch/csrc/planner_kernels.cu"
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
 SSD_SRC = "src/repro_torch/csrc/ssd_scan.cu"
+# Names by which the profiler and ptxas find the kernels: the flash kernel
+# (one template per head_dim chunk count), and every pass an SSD call
+# launches. Neither may contain a word of GEMM_NAMES.
+FLASH_KERNEL = "flash_fwd_wgmma"
+SSD_KERNEL_PREFIX = "ssd_scan_"
+SSD_PASSES = ("ssd_scan_cb", "ssd_scan_chunk_state", "ssd_scan_state_pass",
+              "ssd_scan_chunk_out")
 
 # serving: gemma3-12b at full width and depth, 8 requests in static batches
 # of 4, 2048-token prompts, 32 new tokens each
@@ -102,14 +110,42 @@ FLASH_REL_RMS_TOL = 5e-4
 # off-by-one control shows.
 LOGIT_TOL_REL = 5e-2
 # The SSD kernel against its plain version (ssd_chunked) on the same bf16
-# inputs. Both compute in f32 and differ by sum order and by the kernel's
-# own cumsum and exp: y (rounded to bf16 by both) differs only where a
-# rounding boundary falls between them, h (f32) by f32 rounding. Bounds on
+# inputs. Both accumulate in f32 and differ by sum order, by the kernel's
+# own cumsum and exp, and by its tensor-core operands: M, the decay-weighted
+# x and the state h go in as a bf16 high part plus remainder (~16 bits). y
+# (rounded to bf16 by both) differs only where a rounding boundary falls
+# between them, h (f32) by little more than f32 rounding. Bounds on
 # ||kernel - plain|| / ||plain||: a state that is not carried across
-# chunks, an exclusive cumsum, a missing dt_j weight or a bf16 accumulator
-# each break one of them (tests/test_torch_ssd.py emulates each).
+# chunks, an exclusive cumsum, a missing dt_j weight, a bf16 accumulator,
+# or one bf16 rounding of M or of the state update's operand each break
+# one of them (tests/test_torch_ssd.py emulates each).
 SSD_Y_REL_RMS_TOL = 1e-3
 SSD_H_REL_RMS_TOL = 1e-4
+
+
+def ptxas_usage(log: str, name: str) -> dict:
+    """Registers, spills and static shared memory that ``nvcc -Xptxas -v``
+    reported for each kernel whose mangled name contains ``name``."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1) if name in m.group(1) else None
+            if entry:
+                out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[entry]["static_smem_bytes"] = int(s.group(1)) if s else 0
+    return out
 
 
 def gpu_line() -> str:
@@ -393,11 +429,12 @@ def flash_bound_ms(b: int, t: int, hq: int, hkv: int, d: int,
         "operations" if ops_s >= bytes_s else "bytes")
 
 
-def check_flash(fa, cfg) -> list:
+def check_flash(fa, cfg, usage=None) -> list:
     """The flash kernel against its plain version at gemma3-12b's prefill
     shapes (4 sequences, 16 query heads over 8 kv heads, head_dim 240,
     bf16); ``scaled_dot_product_attention`` on the same inputs and mask is
-    timed as the library yardstick only."""
+    timed as the library yardstick only. ``usage`` (from
+    :func:`ptxas_usage`) adds the kernel's registers and shared memory."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -439,6 +476,7 @@ def check_flash(fa, cfg) -> list:
         bound, by = flash_bound_ms(SERVE_BATCH, t, hq, hkv, d, window)
         case = {"case": name, "q": list(q.shape), "kv": list(k.shape),
                 "window": window, **err, "tol_rel_rms": FLASH_REL_RMS_TOL,
+                **flash_resources(fa, d, usage),
                 "ms": median_ms(kernel), "plain_ms": median_ms(plain),
                 "library_ms": median_ms(library), "bound_ms": bound,
                 "bound_by": by}
@@ -642,7 +680,7 @@ def profile_serving(M, srv, tokens) -> dict:
         return out
 
     def split(ks: dict, wall_s: float) -> dict:
-        flash = sum(v for k, v in ks.items() if "flash_fwd" in k)
+        flash = sum(v for k, v in ks.items() if FLASH_KERNEL in k)
         gemm = sum(v for k, v in ks.items()
                    if any(w in k.lower() for w in
                           ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
@@ -713,10 +751,23 @@ def ssd_training_inputs(cfg, gen):
             cm.to(torch.bfloat16))
 
 
-def check_ssd(ssd, cfg) -> dict:
+def flash_resources(fa, d: int, usage) -> dict:
+    """The registers and spills ptxas gave the flash kernel instance for
+    head_dim d, and the dynamic shared memory it launches with."""
+    if usage is None:
+        return {}
+    chunks = -(-d // 64)
+    inst = [u for e, u in usage.items() if f"ILi{chunks}E" in e]
+    return {"registers": inst[0].get("registers") if inst else None,
+            "spill_bytes": inst[0].get("spill_bytes") if inst else None,
+            "smem_bytes": fa._library().flash_attention_smem_bytes(d)}
+
+
+def check_ssd(ssd, cfg, usage=None) -> dict:
     """The SSD kernel against its plain version (``ssd_chunked``) at the
     training shapes; no single PyTorch call computes the scan, so there is
-    no library yardstick."""
+    no library yardstick. ``usage`` (from :func:`ptxas_usage`) adds each
+    pass's registers and shared memory."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     ins = ssd_training_inputs(cfg, gen)
     chunk = cfg.ssm.chunk_size
@@ -744,6 +795,14 @@ def check_ssd(ssd, cfg) -> dict:
             "flop": ops,
             "bound_ms_f32_cuda_cores": 1e3 * ops / F32_FLOPS}
     case["bound_share"] = bound / case["ms"]
+    if usage is not None:
+        s = cfg.ssm
+        dyn = ssd._library().ssd_scan_smem_bytes(chunk, s.headdim,
+                                                 s.d_state)
+        case["passes"] = {
+            next((p for p in SSD_PASSES if p in e), e): {
+                **u, "dynamic_smem_bytes": dyn if "chunk_out" in e else 0}
+            for e, u in usage.items()}
     emit({"ssd_check": case})
     del ins
     torch.cuda.empty_cache()
@@ -966,7 +1025,7 @@ def profile_training(ops, tr) -> dict:
             ms = k.duration / 1e3
             by_name[k.name] = by_name.get(k.name, 0.0) + ms
             key = ("ssd_plain_backward_ms" if in_bwd
-                   else "ssd_kernel_ms" if "ssd_scan_kernel" in k.name
+                   else "ssd_kernel_ms" if SSD_KERNEL_PREFIX in k.name
                    else "gemm_ms" if any(w in k.name.lower()
                                          for w in GEMM_NAMES)
                    else "other_ms")
@@ -1096,7 +1155,8 @@ def main() -> int:
 
     # 6. the flash kernel against its plain version at the prefill's shapes
     cfg = get_config(ARCH)
-    flash_cases = check_flash(fa, cfg)
+    flash_cases = check_flash(
+        fa, cfg, ptxas_usage(built[fa._SOURCE.name][1], FLASH_KERNEL))
 
     # 7. the serving main path. cuBLAS reduces bf16 GEMMs in f32 (no
     # reduced-precision reduction) and f32 GEMMs in full f32 (no TF32), so
@@ -1115,7 +1175,8 @@ def main() -> int:
     # 9. training mamba2-370m: the SSD kernel against its plain version, one
     # step on the kernel path against the plain path, then the Trainer
     tcfg = get_config(TRAIN_ARCH)
-    ssd_case = check_ssd(ssd, tcfg)
+    ssd_case = check_ssd(
+        ssd, tcfg, ptxas_usage(built[ssd._SOURCE.name][1], SSD_KERNEL_PREFIX))
     trun = RunConfig(arch=TRAIN_ARCH, attn_impl="flash", remat="block",
                      seed=SEED, warmup_steps=2, total_steps=TRAIN_STEPS)
     from repro_torch.data.pipeline import TokenPipeline

@@ -61,13 +61,15 @@ def build(*sources: KernelSource) -> Dict[str, Tuple[Path, str]]:
     """Build every source whose library does not exist yet, all ``nvcc``
     processes started together. Returns, per source name, the library
     path and nvcc's output (``-Xptxas -v``: registers, shared memory and
-    spills per kernel; empty when the build was already there)."""
+    spills per kernel), kept beside the library so that a build that was
+    already there reports it too."""
     out: Dict[str, Tuple[Path, str]] = {}
     running = []
     for src in sources:
         lib = src.library()
         if lib.exists():
-            out[src.name] = (lib, "")
+            log = lib.with_suffix(".log")
+            out[src.name] = (lib, log.read_text() if log.exists() else "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -81,6 +83,7 @@ def build(*sources: KernelSource) -> Dict[str, Tuple[Path, str]]:
         if proc.returncode != 0:
             failed = failed or f"nvcc failed to build {src.path}:\n{log}"
             continue
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)           # atomic: a reader never sees half
         out[src.name] = (lib, log)
     if failed:

@@ -14,9 +14,13 @@ What bounds it on the card: at gemma3-12b's prefill (4 x 2048 tokens, 16
 query heads over 8 kv heads, head_dim 240, bf16) a layer needs ~1.3e11
 tensor-core FLOP (global) or ~9.7e10 (window 1024) for 189 MB of q, k, v
 and o: ~0.13 ms at 989 TFLOP/s bf16 against ~0.06 ms at 3.35 TB/s, so it
-is compute-bound. The kernel runs both products on the tensor cores
-(``mma.sync``, f32 accumulate) and visits only the kv tiles the causal
-band and the window reach; the source says more.
+is compute-bound. The kernel is warp-specialised for Hopper: a producer
+warp streams K and V tiles by TMA into two-stage rings of shared memory
+guarded by mbarriers, and two consumer warpgroups run both products with
+``wgmma`` (P from registers, V read transposed by the instruction),
+visiting only the kv tiles the causal band and the window reach; the
+source says more. TMA needs 16-byte aligned rows, which the checks below
+ask for.
 
 :func:`flash_attention` takes the plain version only for CPU tensors; on
 CUDA tensors it launches the kernel or raises. ``flash_attention.launches``
@@ -47,6 +51,8 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention_fwd.restype = i32
     lib.flash_attention_max_head_dim.argtypes = []
     lib.flash_attention_max_head_dim.restype = i32
+    lib.flash_attention_smem_bytes.argtypes = [i32]
+    lib.flash_attention_smem_bytes.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:

@@ -16,13 +16,17 @@ the sequential oracle :func:`~repro_torch.kernels.ref.ssd_scan_ref`.
 
 What bounds the kernel on the card: at mamba2-370m's training shapes (8 x
 2048 tokens, 32 heads of 64, d_state 128, chunk 256) a call needs ~4.3e10
-FLOP (the upper triangle of C Bᵀ skipped) for ~150 MB: ~0.65 ms at the
-H100's 67 TFLOP/s f32 on the CUDA cores, where this first kernel does its
-arithmetic, against ~0.045 ms for the bytes. The source says more.
+FLOP (the upper triangle of C Bᵀ skipped) for ~150 MB: ~0.045 ms for the
+bytes at 3.35 TB/s, ~0.043 ms at the bf16 tensor-core peak. The source
+runs it as four passes that are parallel over chunks (C Bᵀ once per
+chunk for all heads; each chunk's own state; the recurrence over chunks;
+the outputs), with every product on the tensor cores and each computed
+f32 operand split into a bf16 high part and remainder; a call launches
+the four kernels in order and counts one launch.
 
 :func:`ssd_scan` takes the plain version only for CPU tensors; on CUDA
-tensors it launches the kernel or raises. ``ssd_scan.launches`` counts
-kernel launches.
+tensors it launches the kernels or raises. ``ssd_scan.launches`` counts
+calls that launched them (one per call, for the four passes).
 """
 from __future__ import annotations
 
@@ -45,7 +49,11 @@ MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 128
 def _library() -> ctypes.CDLL:
     lib = load(_SOURCE)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_scan_fwd.argtypes = [ptr] * 7 + [i32] * 6 + [i64] * 13 + [ptr]
+    lib.ssd_scan_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [i64] * 13 + [ptr]
+    lib.ssd_scan_workspace_bytes.argtypes = [i32] * 6
+    lib.ssd_scan_workspace_bytes.restype = i64
+    lib.ssd_scan_smem_bytes.argtypes = [i32] * 3
+    lib.ssd_scan_smem_bytes.restype = i32
     lib.ssd_scan_fwd.restype = i32
     lib.ssd_scan_error_string.argtypes = [i32]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -188,11 +196,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return y, h.zero_()
     with torch.cuda.device(dev):
         lib = _library()
+        # C B^T per chunk, cs per head and the chunk states (csrc says more)
+        work = torch.empty(lib.ssd_scan_workspace_bytes(bsz, s, nh, hd, n,
+                                                        chunk),
+                           dtype=torch.uint8, device=dev)
         err = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), h.data_ptr(), bsz, s, nh, hd, n,
-            chunk, *x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
-            *Cm.stride()[:2], *y.stride()[:3],
+            Cm.data_ptr(), y.data_ptr(), h.data_ptr(), work.data_ptr(), bsz,
+            s, nh, hd, n, chunk, *x.stride()[:3], *dt.stride(),
+            *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3],
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.ssd_scan_error_string(err).decode()

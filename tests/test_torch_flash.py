@@ -28,6 +28,19 @@ CASES = {
     "ragged_gqa_window": (1, 300, 4, 2, 16, 100),
 }
 
+# edges of the kernel's 128-row q tiles and 64-key kv tiles, on the card
+# only: T not a multiple of 128, T shorter than one tile, window 1, a
+# window past T, gemma3-12b's GQA 16:8 at head_dim 240, and three 64-column
+# chunks of head_dim
+EDGES = {
+    "t_130": (1, 130, 2, 2, 64, None),
+    "t_40_gqa": (2, 40, 2, 1, 32, None),
+    "window_1": (1, 200, 2, 2, 64, 1),
+    "window_past_t": (1, 200, 2, 2, 64, 256),
+    "gqa_16to8_d240": (1, 300, 16, 8, 240, 100),
+    "d192_ragged": (1, 150, 2, 2, 192, None),
+}
+
 
 def _inputs(case, dtype=torch.float32, seed=0):
     B, T, Hq, Hkv, d, _ = case
@@ -135,12 +148,18 @@ def test_flash_gradients_match_jax_grad(name):
 def _kernel_arithmetic(q, k, v, window, *, split_p=True, bf16_acc=False,
                        block=64):
     """The CUDA kernel's arithmetic in torch ([B, H, T, d], one kv head
-    per q head): online softmax over 64-key tiles in f32, P multiplied as a
-    bf16 high part plus a bf16 remainder (``split_p``) or as one bf16
-    (the usual flash design), the accumulator optionally kept in bf16."""
+    per q head), as one consumer warpgroup runs it: S = Q K^T over 64-key
+    tiles in f32 (wgmma accumulates in f32), scaled to log2 units and
+    masked, online softmax with ``exp2``, the accumulator rescaled by the
+    correction and then P V added as two products, P's bf16 high part and
+    its bf16 remainder (``split_p``), or as one bf16 product (the usual
+    flash design); the accumulator optionally kept in bf16; O / l rounded
+    to bf16."""
     def bf(x):
         return x.to(torch.bfloat16).float()
     B, H, T, d = q.shape
+    scale_log2 = torch.tensor(1.0 / math.sqrt(d)
+                              * 1.4426950408889634).float()
     i = torch.arange(T)[:, None]
     j = torch.arange(T)[None, :]
     mask = j <= i
@@ -150,18 +169,18 @@ def _kernel_arithmetic(q, k, v, window, *, split_p=True, bf16_acc=False,
     l = torch.zeros(B, H, T)
     acc = torch.zeros(B, H, T, d)
     for k0 in range(0, T, block):
-        s = (q @ k[:, :, k0:k0 + block].transpose(-1, -2)) / math.sqrt(d)
+        s = (q @ k[:, :, k0:k0 + block].transpose(-1, -2)) * scale_log2
         s = s.masked_fill(~mask[:, k0:k0 + block], -math.inf)
         m_new = torch.maximum(m, s.amax(-1))
         ref = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        p = torch.exp(s - ref[..., None])
-        corr = torch.exp(m - ref)
+        p = torch.exp2(s - ref[..., None])
+        corr = torch.exp2(m - ref)
         l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None]
         hi = bf(p)
-        pv = hi @ v[:, :, k0:k0 + block]
+        acc = acc + hi @ v[:, :, k0:k0 + block]
         if split_p:
-            pv = pv + bf(p - hi) @ v[:, :, k0:k0 + block]
-        acc = acc * corr[..., None] + pv
+            acc = acc + bf(p - hi) @ v[:, :, k0:k0 + block]
         if bf16_acc:
             acc = bf(acc)
         m = m_new
@@ -197,7 +216,7 @@ def test_chip_tolerance_passes_the_kernel_arithmetic_and_fails_faults():
 # --- on the card --------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", [*CASES, *EDGES])
 def test_kernel_matches_plain_on_the_card(name):
     """The CUDA kernel against its plain version in bf16, to the bound
     ``chip_smoke.py`` uses at the serving shapes."""
@@ -205,8 +224,9 @@ def test_kernel_matches_plain_on_the_card(name):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     sys.path.insert(0, str(REPO))
     import chip_smoke
-    q, k, v = (x.cuda() for x in _inputs(CASES[name], torch.bfloat16))
-    window = CASES[name][-1]
+    case = CASES[name] if name in CASES else EDGES[name]
+    q, k, v = (x.cuda() for x in _inputs(case, torch.bfloat16))
+    window = case[-1]
     before = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v, causal=True, window=window)
     want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
@@ -217,3 +237,57 @@ def test_kernel_matches_plain_on_the_card(name):
     assert err["max_abs_err"] <= err["max_abs_tol"], err
     with pytest.raises(ValueError, match="bfloat16"):
         fa.flash_attention(q.float(), k.float(), v.float())
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 50], ids=["full", "window_50"])
+def test_kernel_non_causal_and_shorter_queries_on_the_card(window):
+    """Without the causal mask every kv tile is visited (and with a window
+    only those it reaches), for T = S and for 64 queries over 200 keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    rng = np.random.default_rng(9)
+    for T, S in ((200, 200), (64, 200)):
+        q = torch.tensor(rng.standard_normal((2, T, 4, 64)),
+                         dtype=torch.float32).to(torch.bfloat16).cuda()
+        k, v = (torch.tensor(rng.standard_normal((2, S, 2, 64)),
+                             dtype=torch.float32).to(torch.bfloat16).cuda()
+                for _ in range(2))
+        got = fa.flash_attention(q, k, v, causal=False, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal=False, window=window)
+        torch.cuda.synchronize()
+        err = chip_smoke.flash_errors(got, want)
+        assert err["rel_rms_err"] <= chip_smoke.FLASH_REL_RMS_TOL, (T, S, err)
+        assert err["max_abs_err"] <= err["max_abs_tol"], (T, S, err)
+
+def test_ptxas_usage_reads_each_kernel_instance():
+    """``chip_smoke.ptxas_usage`` picks the registers, spills and static
+    shared memory of the kernels whose mangled name matches, from the
+    ``-Xptxas -v`` log that ``_build.build`` keeps beside each library."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi4EEEv14CUtensorMap_st' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_1",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_111ssd_scan_cbEPK13__nv_bfloat16' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 73 registers, used 1 barriers, 34816 bytes "
+        "smem, 400 bytes cmem[0]",
+    ])
+    flash = chip_smoke.ptxas_usage(log, chip_smoke.FLASH_KERNEL)
+    assert list(flash.values()) == [{"spill_bytes": 12, "registers": 168,
+                                     "static_smem_bytes": 0}]
+    ssd_use = chip_smoke.ptxas_usage(log, chip_smoke.SSD_KERNEL_PREFIX)
+    assert list(ssd_use.values()) == [{"spill_bytes": 0, "registers": 73,
+                                       "static_smem_bytes": 34816}]
+    assert not any(w in name for name in (chip_smoke.FLASH_KERNEL,
+                                          *chip_smoke.SSD_PASSES)
+                   for w in chip_smoke.GEMM_NAMES)

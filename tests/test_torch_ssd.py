@@ -39,6 +39,12 @@ CASES = {
     "narrow_heads": (1, 384, 8, 16, 32, 128),
     "mamba2": (1, 512, 2, 64, 128, 256),
 }
+# edges of the kernel's passes, on the card only: one chunk of 64 (the
+# smallest chunk, batch 1, an odd head count), two chunks at batch 1
+EDGES = {
+    "one_chunk_64": (1, 64, 3, 16, 16, 64),
+    "two_chunks_b1": (1, 128, 2, 32, 32, 64),
+}
 F32_REL = 1e-5
 BF16_REL_RMS = 1e-3
 
@@ -141,38 +147,60 @@ def test_gradients_match_jax_grad():
 # --- the bound chip_smoke.py holds the kernel to -------------------------------
 
 def _kernel_arithmetic(x, dt, A, Bm, Cm, chunk, *, carry=True,
-                       inclusive=True, dt_weight=True, bf16_acc=False):
-    """The kernel's per-chunk arithmetic in f32 (y from the state before
-    the chunk, then the state update), with one of its parts broken on
-    request; y rounded to bf16 at the end."""
+                       inclusive=True, dt_weight=True, bf16_acc=False,
+                       split_m=True, split_update=True):
+    """The kernel's four passes in f32, with one part broken on request.
+
+    C B^T from the bf16 inputs once per chunk; per (head, chunk) the
+    inclusive cumsum and the chunk's own state X^T (w B) with the
+    decay-weighted w x split into a bf16 high part and remainder
+    (``split_update``; else one bf16); the recurrence over chunks, each
+    chunk reading the state before it; then y = e^{cs_i} (C h^T), h split
+    in two bf16, plus M X with M = C B^T . L . dt_j split in two bf16
+    (``split_m``; else one bf16). ``bf16_acc`` keeps the accumulators in
+    bf16. y is rounded to bf16 at the end. A product with a split operand
+    is emulated as the product with (high + remainder), which equals the
+    two tensor-core products up to f32 sum order."""
     bf = lambda t: t.to(torch.bfloat16).float()
     acc = bf if bf16_acc else (lambda t: t)
+
+    def operand(t, split):
+        hi = bf(t)
+        return hi + bf(t - hi) if split else hi
+
     B, S, nh, hd = x.shape
-    xs = x.float().permute(0, 2, 1, 3)                   # [B, nh, S, hd]
-    dts = dt.float().permute(0, 2, 1)                    # [B, nh, S]
-    bm, cm = Bm[:, :, 0].float(), Cm[:, :, 0].float()    # [B, S, N]
+    nc = S // chunk
+    xs = x.float().permute(0, 2, 1, 3).reshape(B, nh, nc, chunk, hd)
+    dts = dt.float().permute(0, 2, 1).reshape(B, nh, nc, chunk)
+    bm = Bm[:, :, 0].float().reshape(B, 1, nc, chunk, -1)
+    cm = Cm[:, :, 0].float().reshape(B, 1, nc, chunk, -1)
+    da = dts * A[None, :, None, None]
+    cs = torch.cumsum(da, -1) if inclusive else torch.cumsum(da, -1) - da
+    # pass 1: C B^T once per chunk (heads share B and C)
+    cb = cm @ bm.transpose(-1, -2)                       # [B, 1, nc, Q, Q]
+    # pass 2: each chunk's own state
+    w = torch.exp(cs[..., -1:] - cs) * dts
+    states = operand(xs * w[..., None], split_update).transpose(-1, -2) @ bm
+    # pass 3: the recurrence; each chunk keeps the state before it
     h = torch.zeros(B, nh, hd, bm.shape[-1])
-    ys = []
+    before = []
+    for c in range(nc):
+        before.append(h if carry else torch.zeros_like(h))
+        h = acc(h * torch.exp(cs[:, :, c, -1])[..., None, None]
+                + states[:, :, c])
+    h_prev = torch.stack(before, dim=2)                  # [B, nh, nc, hd, N]
+    # pass 4: the outputs
     tri = torch.ones(chunk, chunk, dtype=torch.bool).tril()
-    for c0 in range(0, S, chunk):
-        sl = slice(c0, c0 + chunk)
-        xc, dtc, bc, cc = xs[:, :, sl], dts[:, :, sl], bm[:, None, sl], \
-            cm[:, None, sl]
-        da = dtc * A[None, :, None]
-        cs = torch.cumsum(da, -1) if inclusive else torch.cumsum(da, -1) - da
-        L = torch.where(tri, torch.exp(cs[..., :, None] - cs[..., None, :]),
-                        0.0)
-        m = (cc @ bc.transpose(-1, -2)) * L
-        if dt_weight:
-            m = m * dtc[..., None, :]
-        y = acc(acc((cc * torch.exp(cs)[..., None]) @ h.transpose(-1, -2))
-                + m @ xc)
-        ys.append(y)
-        w = torch.exp(cs[..., -1:] - cs) * dtc
-        upd = h * torch.exp(cs[..., -1])[..., None, None] + \
-            (xc * w[..., None]).transpose(-1, -2) @ bc
-        h = acc(upd) if carry else torch.zeros_like(h)
-    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3)
+    L = torch.where(tri, torch.exp(
+        (cs[..., :, None] - cs[..., None, :]).masked_fill(~tri, -math.inf)),
+        0.0)
+    m = cb * L
+    if dt_weight:
+        m = m * dts[..., None, :]
+    y_off = acc((cm @ operand(h_prev, True).transpose(-1, -2))
+                * torch.exp(cs)[..., None])
+    y = acc(y_off + operand(m, split_m) @ xs)
+    y = y.reshape(B, nh, S, hd).permute(0, 2, 1, 3)
     return bf(y), h
 
 
@@ -180,8 +208,10 @@ def test_chip_tolerance_passes_the_kernel_arithmetic_and_fails_faults():
     """``chip_smoke.py``'s bounds on the kernel against its plain version,
     at mamba2-370m's head geometry with the model's dt and A ranges: the
     kernel's own arithmetic stays well inside both; a state not carried
-    across chunks, an exclusive cumsum, a missing dt_j weight or a bf16
-    accumulator breaks at least one."""
+    across chunks, an exclusive cumsum, a missing dt_j weight, a bf16
+    accumulator, or a single bf16 rounding of M or of the state update's
+    operand (in place of the high part plus remainder) breaks at least
+    one."""
     sys.path.insert(0, str(REPO))
     import chip_smoke
     rng = np.random.default_rng(7)
@@ -207,7 +237,8 @@ def test_chip_tolerance_passes_the_kernel_arithmetic_and_fails_faults():
     assert ok["h_rel_rms_err"] < chip_smoke.SSD_H_REL_RMS_TOL / 3, ok
     assert chip_smoke.ssd_ok(ok)
     for fault in ({"carry": False}, {"inclusive": False},
-                  {"dt_weight": False}, {"bf16_acc": True}):
+                  {"dt_weight": False}, {"bf16_acc": True},
+                  {"split_m": False}, {"split_update": False}):
         assert not chip_smoke.ssd_ok(errors(**fault)), fault
 
 
@@ -269,7 +300,7 @@ def test_mamba_block_matches_reference(use_kernel):
 # --- on the card ---------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", [*CASES, *EDGES])
 def test_kernel_matches_plain_on_the_card(name):
     """The CUDA kernel against its plain version in bf16, to the bounds
     ``chip_smoke.py`` uses at the training shapes."""
@@ -277,7 +308,7 @@ def test_kernel_matches_plain_on_the_card(name):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     sys.path.insert(0, str(REPO))
     import chip_smoke
-    case = CASES[name]
+    case = CASES[name] if name in CASES else EDGES[name]
     x, dt, A, Bm, Cm = (t.cuda() for t in _inputs(case, torch.bfloat16))
     before = ssd.ssd_scan.launches
     y, h = ssd.ssd_scan(x, dt, A, Bm, Cm, case[-1])
@@ -288,3 +319,31 @@ def test_kernel_matches_plain_on_the_card(name):
     assert chip_smoke.ssd_ok(err), err
     with pytest.raises(ValueError, match="bfloat16"):
         ssd.ssd_scan(x.float(), dt, A, Bm, Cm, case[-1])
+
+
+@pytest.mark.gpu
+def test_kernel_reads_strided_views_on_the_card():
+    """x, B and C as the Mamba-2 block hands them over: views into one
+    packed [B, S, d_in + 2N] activation, dt a view of a wider one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    B, S, nh, hd, N, chunk = 2, 512, 4, 64, 128, 256
+    rng = np.random.default_rng(11)
+    packed = torch.tensor(rng.standard_normal((B, S, nh * hd + 2 * N)),
+                          dtype=torch.float32).to(torch.bfloat16).cuda()
+    x, Bm, Cm = torch.split(packed, [nh * hd, N, N], dim=-1)
+    x = x.reshape(B, S, nh, hd)
+    Bm, Cm = Bm.reshape(B, S, 1, N), Cm.reshape(B, S, 1, N)
+    assert not (x.is_contiguous() or Bm.is_contiguous())
+    wide = torch.tensor(np.log1p(np.exp(rng.standard_normal((B, S, 2 * nh)))),
+                        dtype=torch.float32).cuda()
+    dt = wide[..., nh:]
+    A = torch.tensor(-np.exp(rng.standard_normal(nh) * 0.5),
+                     dtype=torch.float32).cuda()
+    y, h = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk)
+    y_p, h_p = ssd.ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    err = chip_smoke.ssd_errors(y, h, y_p, h_p)
+    assert chip_smoke.ssd_ok(err), err
