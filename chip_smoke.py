@@ -239,22 +239,96 @@ def sweep_bound_ms(x, n_cells: int) -> tuple:
         "bytes" if nbytes / HBM_BPS >= ops / F64_FLOPS else "operations")
 
 
-def check_kernels(planner, job, grid_cuda, gt) -> list:
-    """Phase 3: both kernels against their plain versions on the first
-    chunk of a real window, with the main path's own table builders."""
-    dev = planner.device
+# The planner kernels against their plain versions: r within f32 rounding
+# (1e-6 relative); E within f64 summation order, judged against each row's
+# total (1e-9); sweep picks the same slot for every cell, agrees on which
+# cells are feasible, and costs and emissions agree within f64 summation
+# order (1e-9 relative). An inclusive prefix, a carry dropped between runs
+# or segments, r summed in f32, ties going to the later slot or a live hop
+# skipped each break one of them (tests/test_torch_fused.py emulates each).
+RATE_R_TOL_REL, RATE_E_TOL_OF_ROW = 1e-6, 1e-9
+SWEEP_TOL_REL = 1e-9
+# Names by which ptxas reports the two planner kernels.
+PLANNER_KERNELS = {"rate_prefix": "rate_prefix_kernel",
+                   "sweep": "sweep_kernel"}
+
+
+def rate_prefix_errors(r_k, e_k, r_p, e_p) -> dict:
+    """rate_prefix's (r, E) against its plain version's."""
+    row_tot = (e_p[..., -1] + r_p[..., -1].double())[..., None]
+    return {"r_max_rel_err": float(((r_k - r_p).abs() / r_p.abs()).max()),
+            "e_max_rel_err_of_row_total":
+                float(((e_k - e_p).abs() / row_tot).max()),
+            "max_abs_err": max(float((r_k - r_p).abs().max()),
+                               float((e_k - e_p).abs().max()))}
+
+
+def rate_prefix_ok(err: dict) -> bool:
+    return (err["r_max_rel_err"] <= RATE_R_TOL_REL
+            and err["e_max_rel_err_of_row_total"] <= RATE_E_TOL_OF_ROW)
+
+
+def sweep_errors(b_k, b_p) -> dict:
+    """sweep's (cost, emis, slot) rows against its plain version's."""
+    fin = torch.isfinite(b_p[:, :2])
+    diff = (b_k[:, :2] - b_p[:, :2])[fin].abs()
+    return {"slot_mismatches": int((b_k[:, 2] != b_p[:, 2]).sum()),
+            "feasible_agree": bool(torch.equal(fin,
+                                               torch.isfinite(b_k[:, :2]))),
+            "max_rel_err": float((diff / b_p[:, :2][fin].abs()).max())
+            if diff.numel() else 0.0,
+            "max_abs_err": float(diff.max()) if diff.numel() else 0.0}
+
+
+def sweep_ok(err: dict) -> bool:
+    return (err["feasible_agree"] and err["slot_mismatches"] == 0
+            and err["max_rel_err"] <= SWEEP_TOL_REL)
+
+
+def window_chunks(planner, job, grid_cuda, gt) -> dict:
+    """The first and the last chunk of window 0, built by the main path's
+    own table builders: ``{name: (kernel inputs, live cells)}``."""
     jobs = [job(i) for i in range(WINDOW)]
     cells, sla_rows, _ = planner._batch_cells(jobs, DT_S, STRIDE)
-    chunk = next(gt._iter_chunks(cells, STRIDE, grid_cuda._MAX_ELEMS_PALLAS))
-    t = gt._chunk_tables(planner.field, [cells[j] for j in chunk], dt_s=DT_S,
-                         slot_stride=STRIDE, cell_bucket=gt._B_CELLS)
-    x = grid_cuda.fused_inputs(
-        gt.tables_to_device(t, dev),
-        grid_cuda.sla_table(t, np.asarray(sla_rows)[chunk]),
-        grid_cuda.scale_table(t, SLOT_S, None))
-    emit({"check_chunk": {"cells": len(chunk), "pairs": t.n_pairs,
-                          "rows": list(x.zn.shape[:2]), "t_pad": x.t_pad,
-                          "slots": x.scl.shape[1]}})
+    chunks = list(gt._iter_chunks(cells, STRIDE, grid_cuda._MAX_ELEMS_PALLAS))
+    out = {}
+    for name, chunk in (("first", chunks[0]), ("last", chunks[-1])):
+        t = gt._chunk_tables(planner.field, [cells[j] for j in chunk],
+                             dt_s=DT_S, slot_stride=STRIDE,
+                             cell_bucket=gt._B_CELLS)
+        x = grid_cuda.fused_inputs(
+            gt.tables_to_device(t, planner.device),
+            grid_cuda.sla_table(t, np.asarray(sla_rows)[chunk]),
+            grid_cuda.scale_table(t, SLOT_S, None))
+        out[name] = (x, len(chunk))
+        emit({"check_chunk": {"chunk": name, "of": len(chunks),
+                              "cells": len(chunk), "pairs": t.n_pairs,
+                              "cells_padded": x.sla.shape[0],
+                              "rows": list(x.zn.shape[:2]), "t_pad": x.t_pad,
+                              "slots": x.scl.shape[1]}})
+    return out
+
+
+def planner_resources(grid_cuda, x, log: str) -> dict:
+    """Registers, spills and static shared memory ptxas gave each planner
+    kernel (from the build's ``-Xptxas -v`` log), and the dynamic shared
+    memory and cluster it launches with on these inputs."""
+    lib = grid_cuda._library()
+    a, h, w = x.zn.shape
+    out = {name: next(iter(ptxas_usage(log, kernel).values()), {})
+           for name, kernel in PLANNER_KERNELS.items()}
+    if hasattr(lib, "planner_rate_prefix_smem_bytes"):  # older builds lack it
+        out["rate_prefix"]["smem_bytes"] = \
+            lib.planner_rate_prefix_smem_bytes(h, w, DT_S)
+        out["rate_prefix"]["cluster"] = \
+            lib.planner_rate_prefix_cluster(x.t_pad)
+        out["sweep"]["smem_bytes"] = lib.planner_sweep_smem_bytes(h)
+    return out
+
+
+def check_chunk(grid_cuda, x, n_cells: int) -> dict:
+    """Both kernels against their plain versions on one chunk, timed, with
+    their bounds: ``{"rate_prefix": {...}, "sweep": {...}}``."""
 
     def rate(fn):
         return lambda: fn(x.pp, x.zn, x.hn, x.rel0, x.tc, dt_s=DT_S,
@@ -263,17 +337,10 @@ def check_kernels(planner, job, grid_cuda, gt) -> list:
     r_k, e_k = rate(grid_cuda.rate_prefix)()
     r_p, e_p = rate(grid_cuda.rate_prefix_plain)()
     torch.cuda.synchronize()
-    # r: f32 rounding only (1e-6 relative); E: f64 summation order only,
-    # judged against each row's total
-    r_rel = float(((r_k - r_p).abs() / r_p.abs()).max())
-    row_tot = (e_p[..., -1] + r_p[..., -1].double())[..., None]
-    e_rel = float(((e_k - e_p).abs() / row_tot).max())
-    rp_abs = max(float((r_k - r_p).abs().max()),
-                 float((e_k - e_p).abs().max()))
-    if not (r_rel <= 1e-6 and e_rel <= 1e-9):
+    rp_err = rate_prefix_errors(r_k, e_k, r_p, e_p)
+    if not rate_prefix_ok(rp_err):
         raise RuntimeError(f"rate_prefix disagrees with its plain version: "
-                           f"r rel {r_rel:.3e}, E rel to row total "
-                           f"{e_rel:.3e}")
+                           f"{rp_err}")
 
     def sw(fn):
         return lambda: fn(e_k, r_k, x.scl, x.pidx, x.wd, x.sla,
@@ -282,38 +349,55 @@ def check_kernels(planner, job, grid_cuda, gt) -> list:
     b_k = sw(grid_cuda.sweep)()
     b_p = sw(grid_cuda.sweep_plain)()
     torch.cuda.synchronize()
-    n_slot = int((b_k[:, 2] != b_p[:, 2]).sum())
-    fin = torch.isfinite(b_p[:, :2])
-    if not torch.equal(fin, torch.isfinite(b_k[:, :2])):
-        raise RuntimeError("sweep: kernel and plain version disagree on "
-                           "which cells are feasible")
-    diff = (b_k[:, :2] - b_p[:, :2])[fin].abs()
-    sw_rel = float((diff / b_p[:, :2][fin].abs()).max()) if diff.numel() \
-        else 0.0
-    sw_abs = float(diff.max()) if diff.numel() else 0.0
-    if n_slot or not sw_rel <= 1e-9:
+    sw_err = sweep_errors(b_k, b_p)
+    if not sweep_ok(sw_err):
         raise RuntimeError(f"sweep disagrees with its plain version: "
-                           f"{n_slot} slot mismatches, cost/emis rel "
-                           f"{sw_rel:.3e}")
+                           f"{sw_err}")
     rp_bound, rp_by = rate_prefix_bound_ms(x)
-    sw_bound, sw_by = sweep_bound_ms(x, len(chunk))
-    rows = [
-        {"name": "rate_prefix", "route": "cuda", "source": KERNEL_SRC,
-         "replaces": "src/repro/core/scheduler/grid_pallas.py:77",
-         "max_abs_err": rp_abs, "max_rel_err": max(r_rel, e_rel),
-         "r_max_rel_err": r_rel, "e_max_rel_err_of_row_total": e_rel,
-         "ms": median_ms(rate(grid_cuda.rate_prefix)),
-         "plain_ms": median_ms(rate(grid_cuda.rate_prefix_plain)),
-         "bound_ms": rp_bound, "bound_by": rp_by, "library_ms": None},
-        {"name": "sweep", "route": "cuda", "source": KERNEL_SRC,
-         "replaces": "src/repro/core/scheduler/grid_pallas.py:125",
-         "max_abs_err": sw_abs, "max_rel_err": sw_rel,
-         "slot_mismatches": n_slot,
-         "feasible_cells": int(fin[:len(chunk), 0].sum()),
-         "ms": median_ms(sw(grid_cuda.sweep)),
-         "plain_ms": median_ms(sw(grid_cuda.sweep_plain)),
-         "bound_ms": sw_bound, "bound_by": sw_by, "library_ms": None},
-    ]
+    sw_bound, sw_by = sweep_bound_ms(x, n_cells)
+    out = {
+        "rate_prefix": {**rp_err, "max_rel_err": max(
+            rp_err["r_max_rel_err"], rp_err["e_max_rel_err_of_row_total"]),
+            "ms": median_ms(rate(grid_cuda.rate_prefix)),
+            "plain_ms": median_ms(rate(grid_cuda.rate_prefix_plain)),
+            "bound_ms": rp_bound, "bound_by": rp_by},
+        "sweep": {**sw_err,
+                  "feasible_cells": int(torch.isfinite(b_p[:n_cells, 0])
+                                        .sum()),
+                  "ms": median_ms(sw(grid_cuda.sweep)),
+                  "plain_ms": median_ms(sw(grid_cuda.sweep_plain)),
+                  "bound_ms": sw_bound, "bound_by": sw_by}}
+    for row in out.values():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    return out
+
+
+def check_kernels(planner, job, grid_cuda, gt, log: str) -> list:
+    """Phase 3: both kernels against their plain versions on the first
+    and the last chunk of a real window, with the main path's own table
+    builders; the first chunk's times go into the kernels line, with the
+    registers and shared memory read from the build ``log``."""
+    chunks = window_chunks(planner, job, grid_cuda, gt)
+    cases = {}
+    for name, (x, n_cells) in chunks.items():
+        cases[name] = check_chunk(grid_cuda, x, n_cells)
+        for k, res in planner_resources(grid_cuda, x, log).items():
+            cases[name][k].update(res)
+        emit({"planner_check": {"chunk": name, **cases[name]}})
+    source = {"rate_prefix": "src/repro/core/scheduler/grid_pallas.py:77",
+              "sweep": "src/repro/core/scheduler/grid_pallas.py:125"}
+    rows = []
+    for name, replaces in source.items():
+        first, last = cases["first"][name], cases["last"][name]
+        rows.append({"name": name, "route": "cuda", "source": KERNEL_SRC,
+                     "replaces": replaces,
+                     "max_abs_err": max(first["max_abs_err"],
+                                        last["max_abs_err"]),
+                     **{k: first[k] for k in first if k != "max_abs_err"},
+                     "library_ms": None,
+                     "last_chunk": {k: last[k] for k in (
+                         "ms", "plain_ms", "bound_ms", "max_abs_err",
+                         "max_rel_err")}})
     return rows
 
 
@@ -1081,7 +1165,8 @@ def main() -> int:
     ftns, job = planner_scale_jobs(tp)
     planner = tp.TorchCarbonPlanner(ftns, device="cuda",
                                     batch_backend="fused")
-    kernels = check_kernels(planner, job, grid_cuda, gt)
+    kernels = check_kernels(planner, job, grid_cuda, gt,
+                            built[grid_cuda._SOURCE.name][1])
     kernel_fns = {"rate_prefix": grid_cuda.rate_prefix,
                   "sweep": grid_cuda.sweep}
 

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Time the port's flash-attention and SSD kernels at the main path's
-shapes, on one GPU, for any checkout of the port.
+"""Time the port's kernels at the main path's shapes, on one GPU, for any
+checkout of the port.
 
     python3 scripts/time_port_kernels.py [--src DIR] [--label NAME]
+                                         [--arms planner,flash,ssd]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's
-``src``), builds its flash and SSD kernels, holds each against its plain
-version and times it with ``chip_smoke.py``'s own checks (gemma3-12b's
-prefill shapes: global, window 1024 and ragged; mamba2-370m's training
-shapes), and prints one JSON line per check, the device time of one
-call of each by kernel name (``torch.profiler``) and a summary line. Pointing
-``--src`` at an unpacked earlier commit times that commit's kernels with
-the same code, so two versions are compared on one card in one run:
-parent, change, change, parent. Exits 2 without a CUDA device.
+``src``), builds the kernels of the chosen arms, holds each against its
+plain version and times it with ``chip_smoke.py``'s own checks: the
+planner's ``rate_prefix`` and ``sweep`` on the first and the last chunk of
+a 4096-job ``planner_scale`` window, and every launch of one such window;
+flash attention at gemma3-12b's prefill shapes (global, window 1024 and
+ragged); the SSD scan at mamba2-370m's training shapes. Prints one JSON
+line per check, the device time of one call of each by kernel name
+(``torch.profiler``; for the planner also the mean of 20 back-to-back
+calls) and a summary line. Pointing ``--src`` at an unpacked earlier
+commit times that commit's kernels with the same code, so two versions
+are compared on one card in one run: parent, change, change, parent.
+Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -30,25 +35,90 @@ REPO = Path(__file__).resolve().parents[1]
 def device_split(fa, ssd, cfg, tcfg, cs) -> dict:
     """Device time by kernel name (``torch.profiler``) of one flash call
     (global case) and one SSD call at the main path's shapes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     q, k, v = (torch.randn((cs.SERVE_BATCH, cs.PROMPT_LEN, h, cfg.head_dim),
                            generator=gen, device="cuda").to(torch.bfloat16)
                for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
     ins = cs.ssd_training_inputs(tcfg, gen)
+    return profiled_ms({
+        "flash_global": lambda: fa.flash_attention(q, k, v),
+        "ssd": lambda: ssd.ssd_scan(*ins, tcfg.ssm.chunk_size)})
+
+
+def profiled_ms(fns: dict, calls: int = 1) -> dict:
+    """Device ms by kernel name (``torch.profiler``) per call of each
+    function: the mean over ``calls`` back-to-back warm calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     out = {}
-    for name, fn in (("flash_global", lambda: fa.flash_attention(q, k, v)),
-                     ("ssd", lambda: ssd.ssd_scan(*ins,
-                                                  tcfg.ssm.chunk_size))):
+    for name, fn in fns.items():
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
-        out[name] = {e.key[:60]: e.self_device_time_total / 1e3
+        out[name] = {e.key[:60]: e.self_device_time_total / 1e3 / calls
                      for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA}
+    return out
+
+
+def window_kernel_ms(planner, jobs) -> dict:
+    """Every planner kernel launch of one ``plan_batch`` window under
+    ``torch.profiler``, in launch order (device ms each)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    planner.plan_batch(jobs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        planner.plan_batch(jobs)
+        torch.cuda.synchronize()
+    out = {"rate_prefix": [], "sweep": []}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in out:
+            if f"{name}_kernel" in e.name:
+                out[name].append(e.time_range.elapsed_us() / 1e3)
+    return out
+
+
+def planner_arm(cs, built) -> dict:
+    """Both planner kernels on the first and the last chunk of window 0
+    of ``planner_scale``, as ``chip_smoke.py`` phase 3 checks them."""
+    from repro_torch.core.scheduler import grid_cuda
+    from repro_torch.core.scheduler import grid_torch as gt
+    from repro_torch.core.scheduler import planner as tp
+    ftns, job = cs.planner_scale_jobs(tp)
+    planner = tp.TorchCarbonPlanner(ftns, device="cuda",
+                                    batch_backend="fused")
+    log = built[grid_cuda._SOURCE.name][1]
+    out = {}
+    for name, (x, n_cells) in cs.window_chunks(planner, job, grid_cuda,
+                                               gt).items():
+        case = cs.check_chunk(grid_cuda, x, n_cells)
+        for k, res in cs.planner_resources(grid_cuda, x, log).items():
+            case[k].update(res)
+        r, e = grid_cuda.rate_prefix(x.pp, x.zn, x.hn, x.rel0, x.tc,
+                                     dt_s=cs.DT_S, t_pad=x.t_pad)
+        fns = {"rate_prefix": lambda: grid_cuda.rate_prefix(
+                   x.pp, x.zn, x.hn, x.rel0, x.tc, dt_s=cs.DT_S,
+                   t_pad=x.t_pad),
+               "sweep": lambda: grid_cuda.sweep(
+                   e, r, x.scl, x.pidx, x.wd, x.sla, stride=cs.STRIDE,
+                   dt_s=cs.DT_S, slot_s=cs.SLOT_S)}
+        case["device_ms_by_kernel"] = profiled_ms(fns)
+        case["device_ms_by_kernel_mean_of_20"] = profiled_ms(fns, calls=20)
+        cs.emit({"planner_check": {"chunk": name, **case}})
+        out[name] = case
+    launches = window_kernel_ms(planner, [job(i) for i in range(cs.WINDOW)])
+    out["window"] = {name: {"launches": len(ms), "total_ms": sum(ms),
+                            "first_ms": ms[0], "last_ms": ms[-1],
+                            "min_ms": min(ms), "max_ms": max(ms)}
+                     for name, ms in launches.items()}
+    cs.emit({"planner_window_device_ms": {**out["window"],
+                                          "each": launches}})
     return out
 
 
@@ -56,7 +126,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(REPO / "src"))
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--arms", default="planner,flash,ssd",
+                    help="comma-separated: planner, flash, ssd")
     args = ap.parse_args()
+    arms = set(args.arms.split(","))
+    if not arms <= {"planner", "flash", "ssd"}:
+        ap.error(f"unknown arms: {sorted(arms)}")
     if not torch.cuda.is_available():
         print("time_port_kernels: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -70,30 +145,45 @@ def main() -> int:
                            f"not from {src}")
     from repro_torch._build import build
     from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import grid_cuda
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
 
     card = cs.gpu_line()
     print(card, flush=True)
+    sources = {"planner": grid_cuda._SOURCE, "flash": fa._SOURCE,
+               "ssd": ssd._SOURCE}
     t0 = time.perf_counter()
-    built = build(fa._SOURCE, ssd._SOURCE)
+    built = build(*(sources[a] for a in sorted(arms)))
     build_s = time.perf_counter() - t0
     for _, log in built.values():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 print("ptxas:", line.strip(), flush=True)
-    f_use = cs.ptxas_usage(built[fa._SOURCE.name][1], cs.FLASH_KERNEL)
-    s_use = cs.ptxas_usage(built[ssd._SOURCE.name][1], cs.SSD_KERNEL_PREFIX)
-    flash = cs.check_flash(fa, get_config(cs.ARCH), f_use or None)
-    ssd_case = cs.check_ssd(ssd, get_config(cs.TRAIN_ARCH), s_use or None)
-    split = device_split(fa, ssd, get_config(cs.ARCH),
-                         get_config(cs.TRAIN_ARCH), cs)
-    cs.emit({"device_ms_by_kernel": split})
-    cs.emit({"label": args.label, "src": str(src), "card": card,
-             "build_s": build_s,
-             "flash_ms": {c["case"]: c["ms"] for c in flash},
-             "sdpa_ms": {c["case"]: c["library_ms"] for c in flash},
-             "ssd_ms": ssd_case["ms"]})
+    summary = {"label": args.label, "src": str(src), "card": card,
+               "build_s": build_s}
+    if "planner" in arms:
+        planner = planner_arm(cs, built)
+        chunks = ("first", "last")
+        for k in ("rate_prefix", "sweep"):
+            summary[f"{k}_ms"] = {c: planner[c][k]["ms"] for c in chunks}
+            summary[f"{k}_bound_share"] = {
+                c: planner[c][k]["bound_share"] for c in chunks}
+            summary[f"{k}_window_device_ms"] = planner["window"][k]
+    if "flash" in arms:
+        f_use = cs.ptxas_usage(built[fa._SOURCE.name][1], cs.FLASH_KERNEL)
+        flash = cs.check_flash(fa, get_config(cs.ARCH), f_use or None)
+        summary["flash_ms"] = {c["case"]: c["ms"] for c in flash}
+        summary["sdpa_ms"] = {c["case"]: c["library_ms"] for c in flash}
+    if "ssd" in arms:
+        s_use = cs.ptxas_usage(built[ssd._SOURCE.name][1],
+                               cs.SSD_KERNEL_PREFIX)
+        summary["ssd_ms"] = cs.check_ssd(ssd, get_config(cs.TRAIN_ARCH),
+                                         s_use or None)["ms"]
+    if {"flash", "ssd"} <= arms:
+        cs.emit({"device_ms_by_kernel": device_split(
+            fa, ssd, get_config(cs.ARCH), get_config(cs.TRAIN_ARCH), cs)})
+    cs.emit(summary)
     return 0
 
 

@@ -15,10 +15,15 @@ and bound through ``ctypes``):
 
 * :func:`rate_prefix` — device-CI rates per (anchor, path) pair x hop x
   grid step, and their exclusive f64 prefix along time (replaces
-  ``grid_pallas._rate_prefix_kernel``);
+  ``grid_pallas._rate_prefix_kernel``). A thread-block cluster per pair
+  splits the time axis into 512-step segments, and each CTA reads the
+  other segments' per-hop totals from their shared memory; the time math
+  is shared by the pair's hops, and each lane sums a run of 16 steps;
 * :func:`sweep` — per cell x start slot: prefix gathers for both legs,
   drift scale, SLA mask, first-min argmin over slots (replaces
-  ``grid_pallas._sweep_kernel``).
+  ``grid_pallas._sweep_kernel``). One warp per cell, half-warps over the
+  two legs of 16 slots, only the hops with a non-zero weight and the slots
+  before ``n_valid`` gathered.
 
 Each wrapper takes its plain torch version (:func:`rate_prefix_plain`,
 :func:`sweep_plain`) only for CPU tensors; on CUDA tensors it launches
@@ -68,6 +73,12 @@ def _library() -> ctypes.CDLL:
     lib.planner_rate_prefix.restype = i32
     lib.planner_sweep.argtypes = [ptr] * 7 + [i32] * 5 + [f64, f64, ptr]
     lib.planner_sweep.restype = i32
+    lib.planner_rate_prefix_cluster.argtypes = [i32]
+    lib.planner_rate_prefix_cluster.restype = i32
+    lib.planner_rate_prefix_smem_bytes.argtypes = [i32, i32, f64]
+    lib.planner_rate_prefix_smem_bytes.restype = i32
+    lib.planner_sweep_smem_bytes.argtypes = [i32]
+    lib.planner_sweep_smem_bytes.restype = i32
     lib.planner_error_string.argtypes = [i32]
     lib.planner_error_string.restype = ctypes.c_char_p
     return lib
@@ -75,6 +86,9 @@ def _library() -> ctypes.CDLL:
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
            shape: Tuple[int, ...], device: torch.device) -> None:
+    if (x.dtype == dtype and x.shape == shape and x.is_contiguous()
+            and x.device == device):
+        return
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
@@ -84,6 +98,16 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
                          f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(fn, dev: torch.device, *args) -> int:
+    """Call a library entry point with ``args`` and ``dev``'s current
+    stream (its raw handle: no ``Stream`` object is built per call),
+    switching the current device only when it is another."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -150,11 +174,10 @@ def rate_prefix(pp: torch.Tensor, zn: torch.Tensor, hn: torch.Tensor,
     e = torch.empty((a, h, t_pad), dtype=torch.float64, device=dev)
     if r.numel() == 0:
         return r, e
-    with torch.cuda.device(dev):
-        err = _library().planner_rate_prefix(
-            pp.data_ptr(), zn.data_ptr(), hn.data_ptr(), rel0.data_ptr(),
-            tc.data_ptr(), r.data_ptr(), e.data_ptr(), a, h, t_pad, w,
-            float(dt_s), torch.cuda.current_stream(dev).cuda_stream)
+    err = _launch(_library().planner_rate_prefix, dev,
+                  pp.data_ptr(), zn.data_ptr(), hn.data_ptr(),
+                  rel0.data_ptr(), tc.data_ptr(), r.data_ptr(), e.data_ptr(),
+                  a, h, t_pad, w, float(dt_s))
     _raise_on(err, "rate_prefix")
     rate_prefix.launches += 1
     return r, e
@@ -235,12 +258,10 @@ def sweep(e: torch.Tensor, r: torch.Tensor, scl: torch.Tensor,
     best = torch.empty((c, 3), dtype=torch.float64, device=dev)
     if c == 0:
         return best
-    with torch.cuda.device(dev):
-        err = _library().planner_sweep(
-            e.data_ptr(), r.data_ptr(), scl.data_ptr(), pidx.data_ptr(),
-            wd.data_ptr(), sla.data_ptr(), best.data_ptr(), c, h, t_pad,
-            s_pad, int(stride), float(dt_s), float(slot_s),
-            torch.cuda.current_stream(dev).cuda_stream)
+    err = _launch(_library().planner_sweep, dev,
+                  e.data_ptr(), r.data_ptr(), scl.data_ptr(), pidx.data_ptr(),
+                  wd.data_ptr(), sla.data_ptr(), best.data_ptr(), c, h, t_pad,
+                  s_pad, int(stride), float(dt_s), float(slot_s))
     _raise_on(err, "sweep")
     sweep.launches += 1
     return best

@@ -2,6 +2,7 @@
 ``_iter_chunks`` and ``_chunk_tables`` array for array, the lattice
 ``batch_cell_emissions`` against the revived ``grid_jax`` lattice (1e-6
 relative) and against the numpy ``transfer_emissions_g`` oracle (1e-4)."""
+import math
 import sys
 
 import numpy as np
@@ -139,6 +140,127 @@ def test_kernels_match_plain_on_the_card():
     b_p = grid_cuda.sweep_plain(e_k, r_k, x.scl, x.pidx, x.wd, x.sla, **kw)
     assert torch.equal(b_k[:, 2], b_p[:, 2])
     torch.testing.assert_close(b_k[:, :2], b_p[:, :2], rtol=1e-9, atol=0)
+
+
+def _edge_inputs(n_pairs, n_hops, t_pad, s_pad, n_cells, seed,
+                 dev="cuda"):
+    """Kernel inputs made with numpy from a seed, with the main path's
+    ranges: CI parameters of the zone table's order, hourly noise over a
+    week, anchors up to three hours apart, 57 % live hops, 1-73 steps a
+    cell and every slot count from 0 (no feasible slot) to all. Cell 1
+    has n_valid 0, cell 2 a second leg with no live hop."""
+    rng = np.random.default_rng(seed)
+    w_hours, stride = 168, ref.STRIDE
+    pp = np.stack([rng.uniform(50, 700, (n_pairs, n_hops)),
+                   rng.uniform(0, 120, (n_pairs, n_hops)),
+                   rng.uniform(0, 150, (n_pairs, n_hops)),
+                   rng.uniform(0, 40, (n_pairs, n_hops)),
+                   rng.uniform(0, 24, (n_pairs, n_hops)),
+                   rng.uniform(0, 1, (n_pairs, n_hops))], axis=2)
+    n = rng.integers(1, 74, n_cells)
+    top = np.minimum((t_pad - n) // stride + 1, s_pad)
+    n_valid = np.minimum(rng.integers(0, s_pad + 1, n_cells), top)
+    n_valid[1] = 0
+    wd = rng.uniform(5, 200, (n_cells, 2, n_hops)) \
+        * (rng.random((n_cells, 2, n_hops)) < 0.57)
+    wd[2, 1] = 0.0
+    sub = 1.7e9 + rng.uniform(0, 86400, n_cells)
+    sla = np.stack([n, rng.uniform(0, 60, n_cells), n_valid,
+                    rng.uniform(600, 90000, n_cells),
+                    rng.uniform(0, 2e-4, n_cells), rng.uniform(0.5, 1, n_cells),
+                    np.where(rng.random(n_cells) < 0.3,
+                             rng.uniform(1, 50, n_cells), np.inf), sub],
+                   axis=1)
+    f32 = dict(dtype=torch.float32, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    return grid_cuda.FusedInputs(
+        pp=torch.tensor(pp, **f32),
+        zn=torch.tensor(rng.uniform(-1, 1, (n_pairs, n_hops, w_hours)),
+                        **f32),
+        hn=torch.tensor(rng.uniform(-0.5, 0.5, (n_pairs, n_hops, w_hours)),
+                        **f32),
+        rel0=torch.tensor(rng.integers(0, 37, n_pairs) * 300.0, **f64),
+        tc=torch.tensor([13.0, 46800.0, 3.0, 0.87, -8.4], **f64),
+        scl=torch.tensor(rng.uniform(0.9, 1.1, (n_pairs, s_pad)), **f64),
+        pidx=torch.tensor(rng.integers(0, n_pairs, (n_cells, 2)),
+                          dtype=torch.int32, device=dev),
+        wd=torch.tensor(wd, **f64), sla=torch.tensor(sla, **f64),
+        t_pad=t_pad)
+
+
+# (pairs, hops, t_pad, S_pad, cells): one CTA; a length that is no multiple
+# of a segment; the first and the last chunk of a 4096-job window; 64
+# slots; two rounds of an 8-CTA cluster; 3 hops (idle warps) and 11 (two
+# hop groups, more live hops than the sweep unrolls). Cell counts are no
+# multiple of the 4 cells a sweep CTA takes.
+EDGES = {"one_cta": (8, 8, 512, 16, 13),
+         "ragged_t": (16, 8, 700, 48, 37),
+         "first_chunk": (128, 8, 2048, 48, 1713),
+         "last_chunk": (64, 8, 3072, 48, 490),
+         "s_pad_64": (32, 8, 3072, 64, 101),
+         "two_rounds": (16, 8, 4608, 48, 66),
+         "three_hops": (8, 3, 1024, 16, 21),
+         "eleven_hops": (8, 11, 1536, 32, 30)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(EDGES))
+def test_kernels_match_plain_at_tile_edges_on_the_card(name):
+    """Both kernels against their plain versions, under chip_smoke.py's
+    gates, at the edges of their tiles; cell 1 (n_valid 0) gives
+    [+inf, +inf, 0]. Needs a GPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    sys.path.insert(0, str(ref.REPO))
+    import chip_smoke as cs
+    x = _edge_inputs(*EDGES[name], seed=len(name))
+    args = (x.pp, x.zn, x.hn, x.rel0, x.tc)
+    r_k, e_k = grid_cuda.rate_prefix(*args, dt_s=ref.DT_S, t_pad=x.t_pad)
+    r_p, e_p = grid_cuda.rate_prefix_plain(*args, dt_s=ref.DT_S,
+                                           t_pad=x.t_pad)
+    err = cs.rate_prefix_errors(r_k, e_k, r_p, e_p)
+    assert cs.rate_prefix_ok(err), err
+    kw = dict(stride=ref.STRIDE, dt_s=ref.DT_S, slot_s=ref.SLOT_S)
+    b_k = grid_cuda.sweep(e_k, r_k, x.scl, x.pidx, x.wd, x.sla, **kw)
+    b_p = grid_cuda.sweep_plain(e_k, r_k, x.scl, x.pidx, x.wd, x.sla, **kw)
+    err = cs.sweep_errors(b_k, b_p)
+    assert cs.sweep_ok(err), err
+    assert b_k[1].tolist() == [math.inf, math.inf, 0.0]
+    assert bool(torch.isfinite(b_p[:, 0]).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_pad", [16, 48, 64])
+def test_sweep_ties_go_to_the_lower_slot_on_the_card(s_pad):
+    """Exact cost ties within and across tiles of 16 slots (rates of 1.0,
+    so E is exact; no perf weight; the first tile made dearer by the drift
+    table): every cell with a slot past the first tile picks slot 16, the
+    first of the tie, and every other feasible cell slot 0, as the plain
+    version's argmin does. Needs a GPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    sys.path.insert(0, str(ref.REPO))
+    import chip_smoke as cs
+    x = _edge_inputs(16, 8, 3072, s_pad, 203, seed=s_pad)
+    a, h, t_pad = 16, 8, 3072
+    r = torch.ones(a, h, t_pad, dtype=torch.float32, device="cuda")
+    e = torch.arange(t_pad, dtype=torch.float64, device="cuda") \
+        .expand(a, h, t_pad).contiguous()
+    scl = torch.ones_like(x.scl)
+    scl[:, :16] = 2.0
+    sla = x.sla.clone()
+    sla[:, 4] = 0.0
+    sla[:, 6] = math.inf
+    kw = dict(stride=ref.STRIDE, dt_s=ref.DT_S, slot_s=ref.SLOT_S)
+    b_k = grid_cuda.sweep(e, r, scl, x.pidx, x.wd, sla, **kw)
+    b_p = grid_cuda.sweep_plain(e, r, scl, x.pidx, x.wd, sla, **kw)
+    err = cs.sweep_errors(b_k, b_p)
+    assert cs.sweep_ok(err), err
+    deep = sla[:, 2] > 16
+    shallow = (sla[:, 2] > 0) & ~deep
+    assert int(shallow.sum()) > 0 and (s_pad == 16 or int(deep.sum()) > 0)
+    assert bool((b_k[deep, 2] == 16).all())
+    assert bool((b_k[shallow, 2] == 0).all())
 
 
 def test_reference_run_left_no_alias_here(reference):
