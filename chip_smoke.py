@@ -309,20 +309,22 @@ def window_chunks(planner, job, grid_cuda, gt) -> dict:
     return out
 
 
-def planner_resources(grid_cuda, x, log: str) -> dict:
+def planner_ptxas(log: str) -> dict:
     """Registers, spills and static shared memory ptxas gave each planner
-    kernel (from the build's ``-Xptxas -v`` log), and the dynamic shared
-    memory and cluster it launches with on these inputs."""
+    kernel, from the build's ``-Xptxas -v`` log."""
+    return {name: next(iter(ptxas_usage(log, kernel).values()), {})
+            for name, kernel in PLANNER_KERNELS.items()}
+
+
+def planner_resources(grid_cuda, x, log: str) -> dict:
+    """``planner_ptxas``, and the dynamic shared memory each planner kernel
+    launches with on these inputs."""
     lib = grid_cuda._library()
-    a, h, w = x.zn.shape
-    out = {name: next(iter(ptxas_usage(log, kernel).values()), {})
-           for name, kernel in PLANNER_KERNELS.items()}
-    if hasattr(lib, "planner_rate_prefix_smem_bytes"):  # older builds lack it
-        out["rate_prefix"]["smem_bytes"] = \
-            lib.planner_rate_prefix_smem_bytes(h, w, DT_S)
-        out["rate_prefix"]["cluster"] = \
-            lib.planner_rate_prefix_cluster(x.t_pad)
-        out["sweep"]["smem_bytes"] = lib.planner_sweep_smem_bytes(h)
+    _, h, w = x.zn.shape
+    out = planner_ptxas(log)
+    out["rate_prefix"]["smem_bytes"] = \
+        lib.planner_rate_prefix_smem_bytes(h, w, DT_S)
+    out["sweep"]["smem_bytes"] = lib.planner_sweep_smem_bytes(h)
     return out
 
 
@@ -384,6 +386,13 @@ def check_kernels(planner, job, grid_cuda, gt, log: str) -> list:
         for k, res in planner_resources(grid_cuda, x, log).items():
             cases[name][k].update(res)
         emit({"planner_check": {"chunk": name, **cases[name]}})
+    # the kernels line takes only what this run measured, and the bound;
+    # launch geometry and ptxas figures stay in the planner_check lines
+    measured = {"rate_prefix": ("max_rel_err", "r_max_rel_err",
+                                "e_max_rel_err_of_row_total"),
+                "sweep": ("max_rel_err", "slot_mismatches",
+                          "feasible_cells")}
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by")
     source = {"rate_prefix": "src/repro/core/scheduler/grid_pallas.py:77",
               "sweep": "src/repro/core/scheduler/grid_pallas.py:125"}
     rows = []
@@ -393,11 +402,10 @@ def check_kernels(planner, job, grid_cuda, gt, log: str) -> list:
                      "replaces": replaces,
                      "max_abs_err": max(first["max_abs_err"],
                                         last["max_abs_err"]),
-                     **{k: first[k] for k in first if k != "max_abs_err"},
+                     **{k: first[k] for k in measured[name] + timed},
                      "library_ms": None,
                      "last_chunk": {k: last[k] for k in (
-                         "ms", "plain_ms", "bound_ms", "max_abs_err",
-                         "max_rel_err")}})
+                         "max_abs_err",) + measured[name] + timed}})
     return rows
 
 

@@ -16,7 +16,9 @@ line per check, the device time of one call of each by kernel name
 (``torch.profiler``; for the planner also the mean of 20 back-to-back
 calls) and a summary line. Pointing ``--src`` at an unpacked earlier
 commit times that commit's kernels with the same code, so two versions
-are compared on one card in one run: parent, change, change, parent.
+are compared on one card in one run: parent, change, change, parent,
+every run with the same ``--arms`` (each arm's kernels build and run
+before the next arm's, so a run's arms are part of its conditions).
 Exits 2 without a CUDA device.
 """
 from __future__ import annotations
@@ -32,17 +34,22 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 
 
-def device_split(fa, ssd, cfg, tcfg, cs) -> dict:
+def device_split(arms, fa, ssd, cfg, tcfg, cs) -> dict:
     """Device time by kernel name (``torch.profiler``) of one flash call
-    (global case) and one SSD call at the main path's shapes."""
+    (global case) and one SSD call at the main path's shapes, for those
+    of the two among ``arms``."""
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    q, k, v = (torch.randn((cs.SERVE_BATCH, cs.PROMPT_LEN, h, cfg.head_dim),
-                           generator=gen, device="cuda").to(torch.bfloat16)
-               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
-    ins = cs.ssd_training_inputs(tcfg, gen)
-    return profiled_ms({
-        "flash_global": lambda: fa.flash_attention(q, k, v),
-        "ssd": lambda: ssd.ssd_scan(*ins, tcfg.ssm.chunk_size)})
+    fns = {}
+    if "flash" in arms:
+        q, k, v = (torch.randn((cs.SERVE_BATCH, cs.PROMPT_LEN, h,
+                                cfg.head_dim), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+        fns["flash_global"] = lambda: fa.flash_attention(q, k, v)
+    if "ssd" in arms:
+        ins = cs.ssd_training_inputs(tcfg, gen)
+        fns["ssd"] = lambda: ssd.ssd_scan(*ins, tcfg.ssm.chunk_size)
+    return profiled_ms(fns)
 
 
 def profiled_ms(fns: dict, calls: int = 1) -> dict:
@@ -94,11 +101,15 @@ def planner_arm(cs, built) -> dict:
     planner = tp.TorchCarbonPlanner(ftns, device="cuda",
                                     batch_backend="fused")
     log = built[grid_cuda._SOURCE.name][1]
+    # a checkout from before the shared-memory getters reports ptxas alone
+    report = (cs.planner_resources
+              if hasattr(grid_cuda._library(), "planner_sweep_smem_bytes")
+              else lambda gc, x, log: cs.planner_ptxas(log))
     out = {}
     for name, (x, n_cells) in cs.window_chunks(planner, job, grid_cuda,
                                                gt).items():
         case = cs.check_chunk(grid_cuda, x, n_cells)
-        for k, res in cs.planner_resources(grid_cuda, x, log).items():
+        for k, res in report(grid_cuda, x, log).items():
             case[k].update(res)
         r, e = grid_cuda.rate_prefix(x.pp, x.zn, x.hn, x.rel0, x.tc,
                                      dt_s=cs.DT_S, t_pad=x.t_pad)
@@ -180,9 +191,10 @@ def main() -> int:
                                cs.SSD_KERNEL_PREFIX)
         summary["ssd_ms"] = cs.check_ssd(ssd, get_config(cs.TRAIN_ARCH),
                                          s_use or None)["ms"]
-    if {"flash", "ssd"} <= arms:
+    if arms & {"flash", "ssd"}:
         cs.emit({"device_ms_by_kernel": device_split(
-            fa, ssd, get_config(cs.ARCH), get_config(cs.TRAIN_ARCH), cs)})
+            arms, fa, ssd, get_config(cs.ARCH), get_config(cs.TRAIN_ARCH),
+            cs)})
     cs.emit(summary)
     return 0
 

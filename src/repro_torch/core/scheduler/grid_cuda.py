@@ -73,8 +73,6 @@ def _library() -> ctypes.CDLL:
     lib.planner_rate_prefix.restype = i32
     lib.planner_sweep.argtypes = [ptr] * 7 + [i32] * 5 + [f64, f64, ptr]
     lib.planner_sweep.restype = i32
-    lib.planner_rate_prefix_cluster.argtypes = [i32]
-    lib.planner_rate_prefix_cluster.restype = i32
     lib.planner_rate_prefix_smem_bytes.argtypes = [i32, i32, f64]
     lib.planner_rate_prefix_smem_bytes.restype = i32
     lib.planner_sweep_smem_bytes.argtypes = [i32]

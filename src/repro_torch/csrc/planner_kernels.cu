@@ -27,7 +27,8 @@
 //    fit on an SM.
 //  * The hours a segment touches of the hop's zone and hop noise rows are
 //    staged in shared memory; r and E go out through a per-warp staging
-//    buffer as coalesced stores (each lane's run is transposed there).
+//    buffer (each lane's run is transposed there) as coalesced 16-byte
+//    stores, or 4- and 8-byte ones where t_pad is no multiple of 4.
 //
 // sweep_kernel replaces grid_pallas._sweep_kernel
 // (src/repro/core/scheduler/grid_pallas.py:125). It is gather-bound: per
@@ -122,6 +123,31 @@ __device__ __forceinline__ int hour_index(double t_rel, int w_hours) {
              w_hours - 1);
 }
 
+// Stores steps [0, n) of a segment from a warp's staging buffer, where
+// step s sits at (s / kRateRun) * kRateStride + s % kRateRun: V consecutive
+// steps a lane, as one 16-byte store for V > 1 (n and the row's start a
+// multiple of V then).
+template <int V, typename T>
+__device__ __forceinline__ void store_segment(T* __restrict__ row,
+                                              const T* stage, int n,
+                                              int lane) {
+  static_assert(V == 1 || V * sizeof(T) == 16, "one 16-byte vector");
+#pragma unroll
+  for (int k = 0; k < kRateRun / V; ++k) {
+    const int s = (k * 32 + lane) * V;
+    if (s >= n) continue;
+    const T* q = stage + (s / kRateRun) * kRateStride + s % kRateRun;
+    if constexpr (V == 1) {
+      row[s] = q[0];
+    } else if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(row + s) = make_float4(q[0], q[1], q[2],
+                                                        q[3]);
+    } else {
+      *reinterpret_cast<double2*>(row + s) = make_double2(q[0], q[1]);
+    }
+  }
+}
+
 // The two halves of a cluster barrier: memory operations before the arrive
 // are visible to every CTA of the cluster after its wait.
 __device__ __forceinline__ void cluster_arrive() {
@@ -195,6 +221,8 @@ rate_prefix_kernel(const float* __restrict__ pp, const float* __restrict__ zn,
   for (int h = tid; h < n_hops; h += kRateThreads) s_carry[h] = 0.0;
   const int n_rounds = (t_pad + n_cta * kRateSeg - 1) / (n_cta * kRateSeg);
   const int n_groups = (n_hops + kRateWarps - 1) / kRateWarps;
+  // every row starts 16-byte aligned, and so does every segment
+  const bool aligned = (t_pad & 3) == 0;
   int iter = 0;
   for (int round = 0; round < n_rounds; ++round) {
     const int t_seg = (round * n_cta + rank) * kRateSeg;
@@ -281,11 +309,10 @@ rate_prefix_kernel(const float* __restrict__ pp, const float* __restrict__ zn,
         __syncwarp();
         const float* stf = reinterpret_cast<const float*>(stage);
         float* r_row = r_out + row * t_pad + t_seg;
-#pragma unroll
-        for (int k = 0; k < kRateRun; ++k) {
-          const int s = k * 32 + lane;
-          if (s < n_steps)
-            r_row[s] = stf[(s / kRateRun) * kRateStride + s % kRateRun];
+        if (aligned) {
+          store_segment<4>(r_row, stf, n_steps, lane);
+        } else {
+          store_segment<1>(r_row, stf, n_steps, lane);
         }
       }
       cluster_wait();
@@ -321,11 +348,10 @@ rate_prefix_kernel(const float* __restrict__ pp, const float* __restrict__ zn,
         __syncwarp();
         if (lane == 0) s_carry[hop] = carry + round_tot;
         double* e_row = e_out + row * t_pad + t_seg;
-#pragma unroll
-        for (int k = 0; k < kRateRun; ++k) {
-          const int s = k * 32 + lane;
-          if (s < n_steps)
-            e_row[s] = stage[(s / kRateRun) * kRateStride + s % kRateRun];
+        if (aligned) {
+          store_segment<2>(e_row, stage, n_steps, lane);
+        } else {
+          store_segment<1>(e_row, stage, n_steps, lane);
         }
         __syncwarp();  // the staging buffer and noise window are reused
       }
@@ -525,10 +551,7 @@ int planner_sweep(const double* e, const float* r, const double* scl,
   return (int)cudaGetLastError();
 }
 
-// The launch geometry and dynamic shared memory of each kernel, for
-// reports.
-int planner_rate_prefix_cluster(int t_pad) { return rate_cluster(t_pad); }
-
+// The dynamic shared memory each kernel launches with, for reports.
 int planner_rate_prefix_smem_bytes(int n_hops, int w_hours, double dt_s) {
   return (int)rate_smem_bytes(n_hops, w_hours, dt_s);
 }

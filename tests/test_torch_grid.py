@@ -189,12 +189,14 @@ def _edge_inputs(n_pairs, n_hops, t_pad, s_pad, n_cells, seed,
 
 
 # (pairs, hops, t_pad, S_pad, cells): one CTA; a length that is no multiple
-# of a segment; the first and the last chunk of a 4096-job window; 64
-# slots; two rounds of an 8-CTA cluster; 3 hops (idle warps) and 11 (two
-# hop groups, more live hops than the sweep unrolls). Cell counts are no
-# multiple of the 4 cells a sweep CTA takes.
+# of a segment, and one that is odd (no 16-byte stores); the first and the
+# last chunk of a 4096-job window; 64 slots; two rounds of an 8-CTA
+# cluster; 3 hops (idle warps) and 11 (two hop groups, more live hops than
+# the sweep unrolls). Cell counts are no multiple of the 4 cells a sweep
+# CTA takes.
 EDGES = {"one_cta": (8, 8, 512, 16, 13),
          "ragged_t": (16, 8, 700, 48, 37),
+         "odd_t": (16, 8, 701, 48, 37),
          "first_chunk": (128, 8, 2048, 48, 1713),
          "last_chunk": (64, 8, 3072, 48, 490),
          "s_pad_64": (32, 8, 3072, 64, 101),
