@@ -12,6 +12,14 @@ and drives the port's three paths:
   ``TorchCarbonPlanner.plan_batch`` over four 4096-job windows of the
   ``planner_scale`` deployment, with 32 sampled plans checked against the
   port's numpy oracle;
+* the fleet control plane's closed loop: ``examples/fleet_day.py``'s first
+  act (4000 jobs over 24 simulated hours, a 4-shard ``ShardedFleet``, a 6x
+  forecast shock at 11:00 for six hours) on the default fused backend,
+  admission and the shards' re-plan sweeps planning through the two
+  planner kernels, then the same day on the numpy oracle: every job the
+  same admission cell and outcome row, emissions within 1e-4, and
+  fleet_day's own acceptance (all jobs done, a migration, a re-plan, the
+  merged ledger audit within 1e-9);
 * serving gemma3-12b at full width and depth (48 layers, d_model 3840,
   vocab 262144, random weights from a seed): the flash-attention kernel
   against its plain version at the prefill's shapes (global, window 1024
@@ -33,6 +41,7 @@ stdout is one JSON object ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import re
@@ -465,6 +474,262 @@ class SplitTimer:
         torch.cuda.synchronize()
         return {n: sum(a.elapsed_time(b) for a, b in ev)
                 for n, ev in self.events.items()}
+
+
+# --- the fleet day: the control plane's closed loop --------------------------
+
+# examples/fleet_day.py's first act, copied (that file imports the reference):
+# 4000 jobs over 24 simulated hours through a 4-shard ShardedFleet, and at
+# 11:00 a 6x forecast shock on the Quebec and New York grids for six hours.
+FLEET_N_JOBS, FLEET_N_SHARDS = 4000, 4
+FLEET_SHOCK_ZONES = ("CA-QC", "US-NY-NYIS")
+# the ROADMAP's contract for plans: the same cells, emissions within 1e-4
+FLEET_EMIS_TOL_REL = 1e-4
+# fleet_day's own acceptance (examples/fleet_day.py:128-133)
+FLEET_AUDIT_TOL_REL = 1e-9
+
+
+def fleet_day_ftns(ov) -> list:
+    return [ov.FTN("uc", "skylake", 10.0), ov.FTN("m1", "apple_m1", 1.2),
+            ov.FTN("site_qc", "cascade_lake", 40.0),
+            ov.FTN("tacc", "cascade_lake", 10.0)]
+
+
+def _fleet_u(i: int, tag: str) -> float:
+    """Deterministic pseudo-random in [0, 1) (fleet_day's ``_u``)."""
+    d = hashlib.blake2b(f"fleet_day:{tag}:{i}".encode(),
+                        digest_size=8).digest()
+    return int.from_bytes(d, "big") / 2**64
+
+
+def fleet_day_jobs(tp, t0: float) -> list:
+    """fleet_day's ``make_jobs``: every fifth job a 1-3 TB archival copy
+    from ``uc`` (deadline 8-24 h), the rest 50-500 GB over three site
+    replicas (3-12 h); w_perf 0.2 on odd jobs."""
+    jobs = []
+    for i in range(FLEET_N_JOBS):
+        arrival = t0 + 24 * 3600.0 * _fleet_u(i, "arrival")
+        if i % 5 == 0:
+            size = (1000 + 2000 * _fleet_u(i, "size")) * 1e9
+            replicas, deadline_h = ("uc",), 8 + 16 * _fleet_u(i, "dl")
+        else:
+            size = (50 + 450 * _fleet_u(i, "size")) * 1e9
+            replicas = ("site_ne", "site_or", "site_qc")
+            deadline_h = 3 + 9 * _fleet_u(i, "dl")
+        jobs.append(tp.TransferJob(
+            f"day{i:04d}", size, replicas, "tacc",
+            tp.SLA(deadline_s=deadline_h * 3600.0,
+                   w_carbon=1.0, w_perf=0.2 if i % 2 else 0.0),
+            arrival))
+    return jobs
+
+
+def _sync() -> None:
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class CallTimer:
+    """Wraps one bound method of an object: counts its calls, their
+    synchronized wall seconds and the kernel launches made inside them."""
+
+    def __init__(self, obj, attr: str, kernel_fns: dict):
+        self.fn, self.kernel_fns = getattr(obj, attr), kernel_fns
+        self.calls, self.wall_s = 0, 0.0
+        self.calls_launching = 0
+        self.launches = {n: 0 for n in kernel_fns}
+        setattr(obj, attr, self)
+
+    def __call__(self, *a, **k):
+        before = {n: fn.launches for n, fn in self.kernel_fns.items()}
+        _sync()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **k)
+        _sync()
+        self.wall_s += time.perf_counter() - t0
+        self.calls += 1
+        made = {n: fn.launches - before[n]
+                for n, fn in self.kernel_fns.items()}
+        self.calls_launching += any(made.values())
+        for n, c in made.items():
+            self.launches[n] += c
+        return out
+
+
+def run_fleet_day(sharded, ov, tp, t0: float, kernel_fns: dict,
+                  **backends) -> tuple:
+    """One fleet day through the port's entry points, as fleet_day runs
+    it: ``submit_many`` (one fleet-level ``plan_batch``), the shock, then
+    ``run()``. Returns (fleet, report, stats): admission, re-plan sweeps
+    (and the re-scores inside them) and drain timed apart, each with the
+    kernel launches made inside."""
+    fleet = sharded.ShardedFleet(
+        fleet_day_ftns(ov), n_shards=FLEET_N_SHARDS,
+        migration_threshold=250.0, replan_every_s=3600.0,
+        migrate_check_every_s=900.0, obs=True, device=DEVICE, **backends)
+    jobs = fleet_day_jobs(tp, t0)
+    admit = CallTimer(fleet.planner, "plan_batch", kernel_fns)
+    sweeps = [CallTimer(ctl.queue, "replan_pending", kernel_fns)
+              for ctl in fleet.controllers]
+    # inside the sweeps: re-scoring each queued job's old cell
+    rescores = [CallTimer(ctl.planner, "rescore_batch", kernel_fns)
+                for ctl in fleet.controllers]
+    _sync()
+    w0 = time.perf_counter()
+    fleet.submit_many(jobs)
+    _sync()
+    submit_s = time.perf_counter() - w0
+    fleet.inject_shock(t0 + 11 * 3600.0, 6.0, duration_s=6 * 3600.0,
+                       zones=FLEET_SHOCK_ZONES)
+    before = {n: fn.launches for n, fn in kernel_fns.items()}
+    w0 = time.perf_counter()
+    report = fleet.run()
+    _sync()
+    drain_s = time.perf_counter() - w0
+    stats = {
+        "submit_many_s": submit_s, "admission_plan_batch_s": admit.wall_s,
+        "admission_cells": fleet.planner.last_batch_cells,
+        "admission_launches": admit.launches, "drain_s": drain_s,
+        "replan_sweeps": sum(t.calls for t in sweeps),
+        "replan_sweeps_launching": sum(t.calls_launching for t in sweeps),
+        "replan_sweeps_s": sum(t.wall_s for t in sweeps),
+        "replan_rescore_s": sum(t.wall_s for t in rescores),
+        "replan_launches": {n: sum(t.launches[n] for t in sweeps)
+                            for n in kernel_fns},
+        "drain_launches": {n: fn.launches - before[n]
+                           for n, fn in kernel_fns.items()}}
+    return fleet, report, stats
+
+
+def fleet_summary(fleet, report, stats: dict) -> dict:
+    """What the fleet_main_path line prints, and the day's own gates
+    (fleet_day's acceptance): every job completed, every shard had one,
+    at least one migration, re-plan and changed plan, and the merged
+    ledger audit re-integrates the step accounting."""
+    audit = abs(report.ledger_total_g - report.total_actual_g) \
+        / max(report.total_actual_g, 1e-12)
+    sizes = [r.n_jobs for r in fleet.shard_reports]
+    out = {**stats, "jobs_per_s": report.jobs_per_s,
+           "n_completed": report.n_completed, "shard_jobs": sizes,
+           "migrations": report.migrations,
+           "replan_events": report.replan_events,
+           "plans_changed": report.plans_changed,
+           "sla_misses": report.sla_misses, "n_events": report.n_events,
+           "n_steps": report.n_steps, "trace_spans": len(report.trace),
+           "total_planned_g": report.total_planned_g,
+           "total_actual_g": report.total_actual_g,
+           "ledger_audit_rel_err": audit}
+    if report.n_completed != FLEET_N_JOBS or len(report.outcomes) \
+            != FLEET_N_JOBS:
+        raise RuntimeError(f"fleet day completed {report.n_completed} of "
+                           f"{FLEET_N_JOBS} jobs")
+    if sum(sizes) != FLEET_N_JOBS or min(sizes) < 1:
+        raise RuntimeError(f"fleet day: jobs per shard {sizes}")
+    if not (report.migrations >= 1 and report.replan_events >= 1
+            and report.plans_changed >= 1):
+        raise RuntimeError(
+            f"fleet day did not adapt: {report.migrations} migrations, "
+            f"{report.replan_events} re-plans, {report.plans_changed} "
+            f"plans changed")
+    if not audit < FLEET_AUDIT_TOL_REL:
+        raise RuntimeError(f"fleet day: merged ledger audit off by "
+                           f"{audit:.3e}")
+    return out
+
+
+def fleet_cells(fleet) -> dict:
+    """Each job's admission cell, from its shard's record."""
+    return {u: (r.admitted_plan.source, r.admitted_plan.ftn,
+                r.admitted_plan.start_t, r.admitted_plan.predicted_emissions_g)
+            for ctl in fleet.controllers for u, r in ctl._records.items()}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def compare_fleet_days(fleet, report, oracle_fleet, oracle) -> dict:
+    """The kernel day against the numpy day: every job the same admission
+    cell and the same outcome row; totals and each job's planned
+    emissions within FLEET_EMIS_TOL_REL. A job that differs is printed
+    with both days' cells, rows and planned emissions (a re-plan that
+    flipped at the drift_tol edge shows as ``replanned`` differing)."""
+    cells, want_cells = fleet_cells(fleet), fleet_cells(oracle_fleet)
+    row = lambda o: (o.source, o.ftn_sequence, o.migrations, o.replanned,
+                     o.sla_miss)
+    want = {o.job_uuid: o for o in oracle.outcomes}
+    bad, emis_rel = [], 0.0
+    for o in report.outcomes:
+        w = want.get(o.job_uuid)
+        c, wc = cells.get(o.job_uuid), want_cells.get(o.job_uuid)
+        if w is None or c is None or wc is None or c[:3] != wc[:3] \
+                or row(o) != row(w):
+            bad.append({"job": o.job_uuid, "cell": c, "oracle_cell": wc,
+                        "row": row(o), "oracle_row": w and row(w),
+                        "planned_g": o.planned_emissions_g,
+                        "oracle_planned_g": w and w.planned_emissions_g})
+            continue
+        emis_rel = max(emis_rel, _rel(o.planned_emissions_g,
+                                      w.planned_emissions_g),
+                       _rel(c[3], wc[3]))
+    out = {"jobs": len(report.outcomes), "mismatches": len(bad),
+           "max_planned_rel_err": emis_rel,
+           "total_planned_rel_err": _rel(report.total_planned_g,
+                                         oracle.total_planned_g),
+           "total_actual_rel_err": _rel(report.total_actual_g,
+                                        oracle.total_actual_g)}
+    if bad:
+        for b in bad[:20]:
+            emit({"fleet_mismatch": b})
+        raise RuntimeError(f"fleet day: {len(bad)} jobs differ from the "
+                           f"numpy day")
+    if not max(emis_rel, out["total_planned_rel_err"],
+               out["total_actual_rel_err"]) <= FLEET_EMIS_TOL_REL:
+        raise RuntimeError(f"fleet day: emissions off the numpy day: {out}")
+    return out
+
+
+def fleet_day(kernel_fns: dict, split=None) -> dict:
+    """The fleet day on the default fused backend with the planner
+    kernels' launch counts reset just before it, then the same day on the
+    numpy oracle; every gate raises. Returns the fleet_main_path line.
+    With ``split`` (a live :class:`SplitTimer`) the line also carries the
+    fused day's kernel ms by CUDA events around each launch, its host
+    table builds, and the device's busy share of the day's wall time."""
+    from repro_torch.core.carbon.intensity import PAPER_WINDOW_T0 as t0
+    from repro_torch.core.controlplane import sharded
+    from repro_torch.core.scheduler import overlay as ov
+    from repro_torch.core.scheduler import planner as tp
+
+    if split is not None:
+        split.reset()
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    fleet, report, stats = run_fleet_day(sharded, ov, tp, t0, kernel_fns)
+    day_launches = {n: fn.launches for n, fn in kernel_fns.items()}
+    line = fleet_summary(fleet, report, stats)
+    line["launches"] = day_launches
+    if split is not None:
+        kms = split.kernel_ms()
+        line.update(kernel_ms=kms, chunks=split.chunks,
+                    host_table_build_s=split.table_s,
+                    device_busy_share=sum(kms.values()) / 1e3
+                    / (stats["submit_many_s"] + stats["drain_s"]))
+    if not all(day_launches[n] > 0 for n in kernel_fns):
+        raise RuntimeError(f"fleet day launched the planner kernels "
+                           f"{day_launches} times")
+    ofleet, oreport, ostats = run_fleet_day(
+        sharded, ov, tp, t0, kernel_fns, batch_backend="numpy",
+        shard_backend="numpy")
+    oracle = fleet_summary(ofleet, oreport, ostats)
+    line["numpy_day"] = {k: oracle[k] for k in (
+        "drain_s", "submit_many_s", "admission_plan_batch_s",
+        "replan_sweeps", "replan_sweeps_s", "replan_rescore_s",
+        "jobs_per_s", "migrations",
+        "replan_events", "plans_changed", "sla_misses", "total_planned_g",
+        "total_actual_g")}
+    line["vs_numpy_day"] = compare_fleet_days(fleet, report, ofleet, oreport)
+    return line
 
 
 # --- serving gemma3-12b through the flash kernel ----------------------------
@@ -1246,12 +1511,18 @@ def main() -> int:
         raise RuntimeError(f"fused plans diverge from the numpy oracle: "
                            f"{mism} mismatches, emissions rel {rel:.3e}")
 
-    # 6. the flash kernel against its plain version at the prefill's shapes
+    # 6. the fleet day: ShardedFleet -> FleetController x 4 ->
+    # CarbonAwareQueue -> plan_batch -> the planner kernels, then the same
+    # day on the numpy oracle
+    with SplitTimer(grid_cuda) as split:
+        emit({"fleet_main_path": fleet_day(kernel_fns, split)})
+
+    # 7. the flash kernel against its plain version at the prefill's shapes
     cfg = get_config(ARCH)
     flash_cases = check_flash(
         fa, cfg, ptxas_usage(built[fa._SOURCE.name][1], FLASH_KERNEL))
 
-    # 7. the serving main path. cuBLAS reduces bf16 GEMMs in f32 (no
+    # 8. the serving main path. cuBLAS reduces bf16 GEMMs in f32 (no
     # reduced-precision reduction) and f32 GEMMs in full f32 (no TF32), so
     # the logit check below compares roundings to bf16 only.
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -1259,13 +1530,13 @@ def main() -> int:
     run = RunConfig(arch=ARCH, attn_impl="flash", remat="none", seed=SEED)
     srv, probe, flash_launches = serve(fa, sl, cfg, run, power_limit_w(card))
 
-    # 8. logits: cached path against the plain full forward
+    # 9. logits: cached path against the plain full forward
     check_logits(M, srv, probe)
     emit({"profile": profile_serving(M, srv, probe.epochs[0]["tokens"])})
     del srv, probe
     torch.cuda.empty_cache()
 
-    # 9. training mamba2-370m: the SSD kernel against its plain version, one
+    # 10. training mamba2-370m: the SSD kernel against its plain version, one
     # step on the kernel path against the plain path, then the Trainer
     tcfg = get_config(TRAIN_ARCH)
     ssd_case = check_ssd(
@@ -1283,7 +1554,7 @@ def main() -> int:
     del tr
     torch.cuda.empty_cache()
 
-    # 10. results
+    # 11. results
     worst = max(flash_cases, key=lambda c: c["rel_rms_err"])
     kernels.append(
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,

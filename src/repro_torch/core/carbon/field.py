@@ -4,7 +4,9 @@ A copy of the reference's ``CarbonField`` (``repro.core.carbon.field``)
 reduced to what fleet admission planning reads: per-zone traces as numpy
 ufuncs over time arrays with the blake2b weather-band noise hashed once
 per (zone, hour), per-path hop CI matrices, and the prefix-sum emission
-integral that scores every candidate start slot of a leg in one pass.
+integral that scores every candidate start slot of a leg in one pass,
+plus the scalar fast paths (``*_scalar``) that the fleet controller's
+per-step accounting and the transfer engine's congestion trace read.
 The planner's batched paths (``grid_torch``, ``grid_cuda``) read their
 noise tables and device weights from here and are held against it.
 
@@ -87,6 +89,19 @@ class _NoiseTable:
             self._vals[key] = vals
         return vals[hour_idx - h0]
 
+    def lookup_scalar(self, key: str, idx: int) -> float:
+        """Single-index fast path for per-step hot loops (the transfer
+        engine's congestion trace): a hit in the dense range is one int
+        index, a miss falls back to the ranged lookup (which extends the
+        cache, so the miss happens once per window)."""
+        h0 = self._h0.get(key)
+        if h0 is not None:
+            vals = self._vals[key]
+            off = idx - h0
+            if 0 <= off < len(vals):
+                return float(vals[off])
+        return float(self.lookup(key, np.asarray([idx]))[0])
+
 
 class CarbonField:
     """Broadcastable CI queries + prefix-sum emission integrals.
@@ -131,6 +146,74 @@ class CarbonField:
             a, b = get_calibration()
             v = np.maximum(a * v + b, 0.5)
         return v
+
+    def zone_ci_scalar(self, zone: str, t: float,
+                       calibrated: Optional[bool] = None) -> float:
+        """Scalar fast path of :meth:`zone_ci` for per-step hot loops (the
+        fleet controller's emission accounting samples one instant per
+        step): pure ``math`` ops, noise via the shared cached table. Same
+        formula and operation order as the array path / scalar reference.
+        """
+        r = REGIONS[zone]
+        h_of_day = (t / 3600.0) % 24.0
+        v = r.base_ci + r.diurnal_amp * math.cos(
+            2 * math.pi * (h_of_day - r.peak_hour) / 24.0)
+        v -= r.solar_dip * math.exp(-0.5 * ((h_of_day - 13.0) / 2.5) ** 2)
+        if int(t // 86400.0) % 7 in (5, 6):
+            v *= 0.94
+        u = self._zone_noise.lookup_scalar(zone, int(t // 3600.0))
+        v += r.noise * ((u - 0.5) * 2.0)
+        v = max(v, 1.0)
+        if calibrated is None:
+            calibrated = self.calibrated
+        if calibrated:
+            a, b = get_calibration()
+            v = max(a * v + b, 0.5)
+        return v
+
+    def path_ci_scalar(self, path: NetworkPath, t: float,
+                       zone_scale: Optional[Callable[[str], float]] = None
+                       ) -> float:
+        """Scalar fast path of :meth:`path_ci` (one time point).
+
+        ``zone_scale`` multiplies each zone's CI (the control plane's
+        forecast-drift injection); None leaves the forecast trace as-is."""
+        cache: Dict[str, float] = {}
+        tot = 0.0
+        for h in path.hops:
+            ci = cache.get(h.zone)
+            if ci is None:
+                ci = self.zone_ci_scalar(h.zone, t)
+                if zone_scale is not None:
+                    ci *= zone_scale(h.zone)
+                cache[h.zone] = ci
+            tot += ci
+        return tot / path.n_hops
+
+    def hop_ci_scalar(self, ip: str, zone_ci: float, t: float) -> float:
+        """One device's CI given its zone CI (``hop_ci_matrix`` semantics
+        for a single (hop, time) cell)."""
+        u = self._hop_noise.lookup_scalar(ip, int(t // 3600.0)) - 0.5
+        return zone_ci * (1.0 + 0.02 * self._hop_band(ip) + 0.005 * u)
+
+    def path_device_rate_scalar(self, path: NetworkPath,
+                                weights: np.ndarray, t: float,
+                                zone_scale: Optional[Callable[[str], float]]
+                                = None) -> float:
+        """sum_i weights_i x device-CI_i at one instant (the per-step
+        emission-rate numerator, W x gCO2/kWh): the scalar counterpart of
+        ``weights @ hop_ci_matrix(path, [t])``."""
+        cache: Dict[str, float] = {}
+        acc = 0.0
+        for i, h in enumerate(path.hops):
+            zci = cache.get(h.zone)
+            if zci is None:
+                zci = self.zone_ci_scalar(h.zone, t)
+                if zone_scale is not None:
+                    zci *= zone_scale(h.zone)
+                cache[h.zone] = zci
+            acc += float(weights[i]) * self.hop_ci_scalar(h.ip, zci, t)
+        return acc
 
     # --- path level --------------------------------------------------------
     def path_ci(self, path: NetworkPath, ts: ArrayLike) -> np.ndarray:

@@ -16,6 +16,7 @@ package's planner module, so both implementations plan identical inputs.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -99,6 +100,108 @@ def drift(path, ts):
     """A deterministic emission_scale_fn: works on either package's
     paths (it reads only the hop count and the times)."""
     return 1.0 + 0.1 * np.sin(np.asarray(ts) / 7200.0 + path.n_hops)
+
+
+# --- the fleet control plane ------------------------------------------------
+# tests/test_controlplane.py's, tests/test_sharded.py's and tests/test_obs.py's
+# fleets: FTNs, and job specs as (uuid, size_bytes, replicas, deadline_s,
+# submit) to "tacc"
+FLEET_FTNS = (("uc", "skylake", 10.0), ("m1", "apple_m1", 1.2),
+              ("site_qc", "cascade_lake", 40.0),
+              ("tacc", "cascade_lake", 10.0))
+SHOCK_ZONES = ("CA-QC", "US-NY-NYIS")
+
+
+def heavy_specs(n: int = 12, t_off_h: float = 10.0,
+                deadline_h: float = 24.0) -> List[tuple]:
+    """test_controlplane's ``_heavy``: 2 TB archival copies from uc."""
+    return [(f"h{i}", 2000e9 + i * 1e9, ("uc",), deadline_h * 3600.0,
+             T0 + t_off_h * 3600.0 + i * 600.0) for i in range(n)]
+
+
+def sharded_specs(n: int = 12) -> List[tuple]:
+    """test_sharded's ``_jobs``."""
+    return [(f"s{i}", (300 + 100 * i) * 1e9,
+             ("uc", "site_ne") if i % 2 else ("uc",),
+             (8 + i % 6) * 3600.0, T0 + i * 1200.0) for i in range(n)]
+
+
+def obs_specs(n: int = 18, spread_s: float = 1200.0) -> List[tuple]:
+    """test_obs's ``_jobs``."""
+    return [(f"o{i}", (300 + 53 * i % 1500) * 1e9,
+             ("uc", "site_ne") if i % 2 else ("uc",),
+             (8 + i % 6) * 3600.0, T0 + i * spread_s) for i in range(n)]
+
+
+def fleet_jobs(planner_mod, specs) -> list:
+    return [planner_mod.TransferJob(u, size, reps, "tacc",
+                                    planner_mod.SLA(deadline_s=dl), sub)
+            for u, size, reps, dl, sub in specs]
+
+
+def shock(fleet, at_h: float = 5.0, hours: float = 5.0) -> None:
+    fleet.inject_shock(T0 + at_h * 3600.0, 6.0, duration_s=hours * 3600.0,
+                       zones=SHOCK_ZONES)
+
+
+def no_wall(snap) -> dict:
+    """test_obs's ``_no_wall``: a metrics snapshot minus its wall-clock
+    series."""
+    return {kind: [e for e in snap.get(kind, ()) if "wall" not in e["name"]]
+            for kind in ("counters", "gauges", "histograms")}
+
+
+def report_fields(rep, ignore=("wall_s", "jobs_per_s", "metrics")) -> dict:
+    """A FleetReport as plain data, comparable across the two packages
+    (their dataclasses never compare equal to each other): outcome rows as
+    tuples, spans as tuples; ``metrics`` without its wall series."""
+    out = {}
+    for f in dataclasses.fields(rep):
+        if f.name in ignore:
+            continue
+        v = getattr(rep, f.name)
+        if f.name == "outcomes":
+            v = [dataclasses.astuple(o) for o in v]
+        elif f.name == "trace":
+            v = [tuple(sp) for sp in v]
+        out[f.name] = v
+    if "metrics" not in ignore:
+        out["metrics"] = None if rep.metrics is None \
+            else no_wall(rep.metrics)
+    return out
+
+
+def assert_reports_identical(got, want, **kw) -> None:
+    """Bit-identical FleetReports field by field (test_obs's
+    ``_assert_identical``), metrics compared without their wall series."""
+    a, b = report_fields(got, **kw), report_fields(want, **kw)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k] == b[k], k
+
+
+OUTCOME_ROW = ("job_uuid", "source", "ftn_sequence", "start_t",
+               "migrations", "replanned", "sla_miss", "feasible")
+COUNTERS = ("n_jobs", "n_completed", "migrations", "replan_events",
+            "plans_changed", "sla_misses", "n_events", "n_steps")
+
+
+def assert_same_decisions(got, want, rel: float = 1e-4) -> None:
+    """The kernel backends against the numpy oracle: every job the same
+    outcome row (cell, FTN sequence, migrations, re-plan, SLA miss), the
+    same counters, emissions within ``rel``."""
+    import pytest
+    assert [tuple(getattr(o, k) for k in OUTCOME_ROW) for o in got.outcomes] \
+        == [tuple(getattr(o, k) for k in OUTCOME_ROW) for o in want.outcomes]
+    assert [getattr(got, k) for k in COUNTERS] == \
+        [getattr(want, k) for k in COUNTERS]
+    for g, w in zip(got.outcomes, want.outcomes):
+        assert g.planned_emissions_g == pytest.approx(w.planned_emissions_g,
+                                                      rel=rel)
+        assert g.actual_emissions_g == pytest.approx(w.actual_emissions_g,
+                                                     rel=rel)
+    for k in ("total_planned_g", "total_actual_g", "ledger_total_g"):
+        assert getattr(got, k) == pytest.approx(getattr(want, k), rel=rel)
 
 
 def run_reference(what: str, out: Path, timeout: float = 240.0

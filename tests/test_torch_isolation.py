@@ -14,6 +14,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_reduced
 from repro_torch.configs.base import RunConfig
+from repro_torch.core.controlplane import FleetController, ShardedFleet
 from repro_torch.core.scheduler import grid_cuda, overlay
 from repro_torch.core.scheduler.planner import TorchCarbonPlanner
 from repro_torch.launch import serve as serve_launch
@@ -70,6 +71,20 @@ def test_without_cuda_the_planner_raises_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert TorchCarbonPlanner(FTNS, device="cpu").device.type == "cpu"
+
+
+def test_without_cuda_the_control_plane_raises_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FleetController(FTNS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedFleet(FTNS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedFleet(FTNS, batch_backend="numpy", device="cuda")
+    assert FleetController(FTNS, device="cpu").planner.device.type == "cpu"
+    fleet = ShardedFleet(FTNS, device="cpu")
+    assert {c.planner.device.type for c in fleet.controllers} \
+        | {fleet.planner.device.type} == {"cpu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
