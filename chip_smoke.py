@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
 source, started together, ``sm_90a``, into ``build/repro_torch_kernels/``)
-and drives the port's three paths:
+and drives the port's paths:
 
 * fleet admission planning: the planner's two kernels against their plain
   torch versions on the tables of a real 4096-job admission window, then
@@ -20,6 +20,17 @@ and drives the port's three paths:
   same admission cell and outcome row, emissions within 1e-4, and
   fleet_day's own acceptance (all jobs done, a migration, a re-plan, the
   merged ledger audit within 1e-9);
+* the fleet's worker processes, checkpoints and streaming gateway: the
+  same day on four spawn workers (a CUDA context each, the fused kernels
+  in their re-plan sweeps) with two seeded worker kills, a checkpoint to
+  disk at hour 12 and a restore onto fresh workers, bit-identical to the
+  in-process day with the same count of fused plans;
+  ``examples/fleet_durable.py`` on fork workers after CUDA is live (numpy
+  shards, fused admission) equal to its oracle; ``examples/fleet_stream.py``'s
+  bursty day through a ``StreamingGateway`` on the fused kernels, pipeline
+  off and on, bit-identical, the gateway's planner thread launching both
+  kernels; and ``examples/fleet_day.py``'s act three, the 200-zone lattice
+  day with fused admission, making the numpy day's decisions;
 * serving gemma3-12b at full width and depth (48 layers, d_model 3840,
   vocab 262144, random weights from a seed): the flash-attention kernel
   against its plain version at the prefill's shapes (global, window 1024
@@ -35,8 +46,9 @@ and drives the port's three paths:
   restore, and a ``torch.profiler`` split of one step.
 
 Every phase that fails raises, so the exit code is non-zero; without a
-CUDA device the script exits 2 and prints no result. The last line of
-stdout is one JSON object ``{"ok": true, "device": {...}}``.
+CUDA device the script exits 2 and prints no result. Each phase prints its
+seconds. The last line of stdout is one JSON object
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -166,6 +179,21 @@ def gpu_line() -> str:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+class PhaseClock:
+    """Each phase's wall seconds: ``mark(name)`` closes the phase that
+    began at the previous mark and prints it."""
+
+    def __init__(self):
+        self.phases: dict = {}
+        self._t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.phases[name] = now - self._t
+        self._t = now
+        emit({"phase": name, "s": self.phases[name]})
 
 
 def median_ms(fn, n: int = N_TIMED) -> float:
@@ -430,6 +458,7 @@ class SplitTimer:
     def __init__(self, grid_cuda):
         self.gc = grid_cuda
         self.lib = grid_cuda._library()
+        self._lock = threading.Lock()
         self.orig_tables = grid_cuda._chunk_tables
         self.orig_launch = {k: getattr(self.lib, sym)
                             for k, sym in self.LAUNCHES.items()}
@@ -443,8 +472,9 @@ class SplitTimer:
         def tables(*a, **k):
             t0 = time.perf_counter()
             out = self.orig_tables(*a, **k)
-            self.table_s += time.perf_counter() - t0
-            self.chunks += 1
+            with self._lock:
+                self.table_s += time.perf_counter() - t0
+                self.chunks += 1
             return out
 
         def timed(name):
@@ -529,30 +559,79 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
+class ThreadLaunches:
+    """Counts the planner kernels' launches per launching thread, at the
+    bound library's entry points (each wrapper calls its entry point once
+    per launch, on the thread that launches), under a lock: the streaming
+    gateway's planner thread and the coordinator launch at once, and a
+    before/after read of the wrappers' shared counts would mix them."""
+
+    SYMBOLS = SplitTimer.LAUNCHES
+
+    def __init__(self, lib):
+        self.lib = lib
+        self._lock = threading.Lock()
+        self._by_thread: dict = {}
+        self._orig = {sym: getattr(lib, sym) for sym in self.SYMBOLS.values()}
+
+    def __enter__(self):
+        for name, sym in self.SYMBOLS.items():
+            def counted(*a, _launch=self._orig[sym], _name=name):
+                err = _launch(*a)
+                if err == 0:
+                    key = (threading.get_ident(), _name)
+                    with self._lock:
+                        self._by_thread[key] = self._by_thread.get(key, 0) + 1
+                return err
+            setattr(self.lib, sym, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for sym, launch in self._orig.items():
+            setattr(self.lib, sym, launch)
+
+    def mine(self) -> dict:
+        """Launches the calling thread made so far, per kernel."""
+        me = threading.get_ident()
+        with self._lock:
+            return {n: self._by_thread.get((me, n), 0) for n in self.SYMBOLS}
+
+
 class CallTimer:
     """Wraps one bound method of an object: counts its calls, their
-    synchronized wall seconds and the kernel launches made inside them."""
+    synchronized wall seconds and the kernel launches made inside them.
+    With ``threads`` (a live :class:`ThreadLaunches`) the launches are
+    those of the calling thread only; the tallies update under a lock."""
 
-    def __init__(self, obj, attr: str, kernel_fns: dict):
+    def __init__(self, obj, attr: str, kernel_fns: dict, threads=None):
         self.fn, self.kernel_fns = getattr(obj, attr), kernel_fns
+        self.threads = threads
+        self._lock = threading.Lock()
         self.calls, self.wall_s = 0, 0.0
         self.calls_launching = 0
         self.launches = {n: 0 for n in kernel_fns}
         setattr(obj, attr, self)
 
+    def _counts(self) -> dict:
+        if self.threads is not None:
+            return self.threads.mine()
+        return {n: fn.launches for n, fn in self.kernel_fns.items()}
+
     def __call__(self, *a, **k):
-        before = {n: fn.launches for n, fn in self.kernel_fns.items()}
+        before = self._counts()
         _sync()
         t0 = time.perf_counter()
         out = self.fn(*a, **k)
         _sync()
-        self.wall_s += time.perf_counter() - t0
-        self.calls += 1
-        made = {n: fn.launches - before[n]
-                for n, fn in self.kernel_fns.items()}
-        self.calls_launching += any(made.values())
-        for n, c in made.items():
-            self.launches[n] += c
+        wall = time.perf_counter() - t0
+        after = self._counts()
+        made = {n: after[n] - before[n] for n in self.kernel_fns}
+        with self._lock:
+            self.wall_s += wall
+            self.calls += 1
+            self.calls_launching += any(made.values())
+            for n, c in made.items():
+                self.launches[n] += c
         return out
 
 
@@ -648,7 +727,8 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-12)
 
 
-def compare_fleet_days(fleet, report, oracle_fleet, oracle) -> dict:
+def compare_fleet_days(fleet, report, oracle_fleet, oracle,
+                       phase: str = "fleet day") -> dict:
     """The kernel day against the numpy day: every job the same admission
     cell and the same outcome row; totals and each job's planned
     emissions within FLEET_EMIS_TOL_REL. A job that differs is printed
@@ -681,18 +761,19 @@ def compare_fleet_days(fleet, report, oracle_fleet, oracle) -> dict:
     if bad:
         for b in bad[:20]:
             emit({"fleet_mismatch": b})
-        raise RuntimeError(f"fleet day: {len(bad)} jobs differ from the "
+        raise RuntimeError(f"{phase}: {len(bad)} jobs differ from the "
                            f"numpy day")
     if not max(emis_rel, out["total_planned_rel_err"],
                out["total_actual_rel_err"]) <= FLEET_EMIS_TOL_REL:
-        raise RuntimeError(f"fleet day: emissions off the numpy day: {out}")
+        raise RuntimeError(f"{phase}: emissions off the numpy day: {out}")
     return out
 
 
-def fleet_day(kernel_fns: dict, split=None) -> dict:
+def fleet_day(kernel_fns: dict, split=None) -> tuple:
     """The fleet day on the default fused backend with the planner
     kernels' launch counts reset just before it, then the same day on the
-    numpy oracle; every gate raises. Returns the fleet_main_path line.
+    numpy oracle; every gate raises. Returns the fleet_main_path line and
+    the fused day's report.
     With ``split`` (a live :class:`SplitTimer`) the line also carries the
     fused day's kernel ms by CUDA events around each launch, its host
     table builds, and the device's busy share of the day's wall time."""
@@ -729,6 +810,340 @@ def fleet_day(kernel_fns: dict, split=None) -> dict:
         "replan_events", "plans_changed", "sla_misses", "total_planned_g",
         "total_actual_g")}
     line["vs_numpy_day"] = compare_fleet_days(fleet, report, ofleet, oreport)
+    line["fused_plan_batches"] = fused_plan_batches(report)
+    return line, report
+
+
+# --- the fleet's worker processes, checkpoint/restore and streaming ---------
+
+# Phase 6b: the fleet day on four spawn workers, one CUDA context each,
+# hourly barriers, two seeded worker kills before the cut at hour 12, a
+# checkpoint to disk, the coordinator closed and the run restored onto
+# fresh workers. The merge must be phase 6's in-process fused day bit for
+# bit: a kernel's reductions run in a fixed order whichever process
+# launches it (rate_prefix sums its cluster's segment totals in rank
+# order), and every worker thaws the coordinator's field snapshot.
+WORKER_FAULT_SEED, WORKER_CUT_H = 3, 12
+FLEET_CKPT = REPO / "build" / "chip_smoke_fleet.ckpt"
+# the report fields phase 6b holds to phase 6's, and 6d's two runs to each
+# other
+SAME_FIELDS = ("total_planned_g", "total_actual_g", "ledger_total_g",
+               "outcomes", "trace", "n_events", "n_steps", "migrations")
+# examples/fleet_durable.py and examples/fleet_stream.py, copied (both
+# import the reference): 48 jobs on fork workers with a seeded fault plan
+# and a coordinator kill at hour 6; the bursty_day stream through a gateway
+DURABLE_SEED, DURABLE_KILL_AT, DURABLE_CKPT = 11, 6, \
+    REPO / "build" / "chip_smoke_durable.ckpt"
+STREAM_SEED, STREAM_WINDOW_S, STREAM_MAX_BATCH, STREAM_MAX_INFLIGHT = \
+    42, 600.0, 128, 224
+LATTICE_SEED = 7
+
+
+def fused_plan_batches(report) -> float:
+    """The merged ``planner_plan_batches_total{backend="fused"}``: every
+    ``plan_batch`` a fused planner ran, in the coordinator or a worker."""
+    return sum(c["value"] for c in (report.metrics or {}).get("counters", ())
+               if c["name"] == "planner_plan_batches_total"
+               and c["labels"].get("backend") == "fused")
+
+
+def only_respawns(degradations, phase: str) -> None:
+    """A worker that cannot launch a kernel reports an error, and the
+    supervisor's ladder would plan its shard on numpy or in-process: on
+    the card that hides the kernel, so any rung but a respawn fails."""
+    bad = [d for d in degradations if "respawned" not in d]
+    if bad:
+        raise RuntimeError(f"{phase}: degradations other than respawns: "
+                           f"{bad}")
+
+
+def same_report(got, want, phase: str) -> None:
+    diff = [f for f in SAME_FIELDS if getattr(got, f) != getattr(want, f)]
+    if diff:
+        raise RuntimeError(f"{phase}: the merge differs in {diff}")
+
+
+def fleet_workers(day_report) -> dict:
+    """Phase 6b: the fleet day on spawn workers through the fused kernels,
+    kills, checkpoint and restore; returns the fleet_workers line."""
+    from repro_torch.core.carbon.intensity import PAPER_WINDOW_T0 as t0
+    from repro_torch.core.controlplane import parallel, persistence, sharded
+    from repro_torch.core.scheduler import overlay as ov
+    from repro_torch.core.scheduler import planner as tp
+
+    plan = parallel.FaultPlan.seeded(
+        FLEET_N_SHARDS, seed=WORKER_FAULT_SEED, horizon=WORKER_CUT_H,
+        kills=2, backend_faults=0)
+    kw = dict(n_shards=FLEET_N_SHARDS, migration_threshold=250.0,
+              replan_every_s=3600.0, migrate_check_every_s=900.0, obs=True,
+              device=DEVICE)
+    degradations, line = [], {}
+    w0 = time.perf_counter()
+    fleet = sharded.ShardedFleet(
+        fleet_day_ftns(ov), parallel="spawn", shard_backend="fused",
+        supervision=parallel.SupervisionPolicy(checkpoint_every=2),
+        fault_plan=plan, **kw)
+    try:
+        # the first shard command starts the workers: admission, then four
+        # spawned interpreters thawing the field and opening CUDA contexts
+        fleet.submit_many(fleet_day_jobs(tp, t0))
+        fleet.inject_shock(t0 + 11 * 3600.0, 6.0, duration_s=6 * 3600.0,
+                           zones=FLEET_SHOCK_ZONES)
+        for k in range(1, WORKER_CUT_H + 1):
+            fleet.pump_all(t0 + k * 3600.0, strict=True, horizon=math.inf)
+            if k == 1:
+                line["spawn_to_first_barrier_s"] = time.perf_counter() - w0
+        c0 = time.perf_counter()
+        persistence.save(persistence.capture(fleet), FLEET_CKPT)
+        line["capture_save_s"] = time.perf_counter() - c0
+        line["checkpoint_bytes"] = FLEET_CKPT.stat().st_size
+        degradations += fleet.degradations
+        line["recoveries"] = [{k: r[k] for k in ("shard", "outcome",
+                                                 "reason", "wall_s")}
+                              for r in fleet._runner.recoveries]
+    finally:
+        fleet.close()
+    r0 = time.perf_counter()
+    fleet = persistence.restore(persistence.load(FLEET_CKPT),
+                                parallel="spawn", device=DEVICE)
+    try:
+        fleet.pump_all(t0 + (WORKER_CUT_H + 1) * 3600.0, strict=True,
+                       horizon=math.inf)
+        line["restore_to_first_barrier_s"] = time.perf_counter() - r0
+        report = fleet.run()
+        degradations += report.degradations
+        line["coordinator_wall_s"] = time.perf_counter() - w0
+        line["worker_shard_wall_s"] = [r.wall_s for r in fleet.shard_reports]
+    finally:
+        fleet.close()
+        FLEET_CKPT.unlink(missing_ok=True)
+    kills = sum(a.kind == "kill" for a in plan.actions)
+    line.update(faults=[dataclasses.astuple(a) for a in plan.actions],
+                degradations=list(degradations),
+                fused_plan_batches=fused_plan_batches(report),
+                n_completed=report.n_completed,
+                total_actual_g=report.total_actual_g)
+    only_respawns(degradations, "fleet workers")
+    if len(degradations) != kills:
+        raise RuntimeError(f"fleet workers: {kills} kills, "
+                           f"{len(degradations)} respawns")
+    same_report(report, day_report, "fleet workers vs the in-process day")
+    if line["fused_plan_batches"] != fused_plan_batches(day_report):
+        raise RuntimeError(f"fleet workers: {line['fused_plan_batches']} "
+                           f"fused plan_batch calls, the in-process day "
+                           f"{fused_plan_batches(day_report)}")
+    return line
+
+
+def durable_jobs(tp, t0: float) -> list:
+    return [tp.TransferJob(f"d{i}", (200 + (37 * i) % 1400) * 1e9,
+                           ("uc", "site_ne") if i % 3 else ("uc",), "tacc",
+                           tp.SLA(deadline_s=(8 + i % 6) * 3600.0),
+                           t0 + i * 600.0) for i in range(48)]
+
+
+def fleet_durable(kernel_fns: dict) -> dict:
+    """Phase 6c: examples/fleet_durable.py on fork workers in this process,
+    whose CUDA context is live: numpy shards on the CPU, admission on the
+    fused kernels in the coordinator; the restored, faulted run must equal
+    its in-process oracle."""
+    from repro_torch.core.carbon.intensity import PAPER_WINDOW_T0 as t0
+    from repro_torch.core.controlplane import parallel, persistence, sharded
+    from repro_torch.core.scheduler import overlay as ov
+    from repro_torch.core.scheduler import planner as tp
+
+    def build(**kw):
+        fleet = sharded.ShardedFleet(
+            fleet_day_ftns(ov), n_shards=FLEET_N_SHARDS,
+            migration_threshold=250.0, shard_backend="numpy", device=DEVICE,
+            **kw)
+        fleet.submit_many(durable_jobs(tp, t0))
+        fleet.inject_shock(t0 + 5 * 3600.0, 6.0, duration_s=5 * 3600.0,
+                           zones=FLEET_SHOCK_ZONES)
+        return fleet
+
+    before = {n: fn.launches for n, fn in kernel_fns.items()}
+    oracle = build().run()
+    plan = parallel.FaultPlan.seeded(FLEET_N_SHARDS, seed=DURABLE_SEED,
+                                     horizon=4, kills=2, backend_faults=1)
+    w0 = time.perf_counter()
+    fleet = build(parallel="fork", fault_plan=plan,
+                  supervision=parallel.SupervisionPolicy(
+                      command_timeout_s=5.0, checkpoint_every=2))
+    degradations = []
+    try:
+        for k in range(1, 13):
+            fleet.pump_all(t0 + k * 3600.0, strict=True, horizon=math.inf)
+            if k == DURABLE_KILL_AT:
+                persistence.save(persistence.capture(fleet), DURABLE_CKPT)
+                degradations += fleet.degradations
+                fleet.close()
+                fleet = persistence.restore(persistence.load(DURABLE_CKPT),
+                                            parallel="fork", device=DEVICE)
+        report = fleet.run()
+        degradations += report.degradations
+    finally:
+        fleet.close()
+        DURABLE_CKPT.unlink(missing_ok=True)
+    audit = abs(report.ledger_total_g - report.total_actual_g) \
+        / max(report.total_actual_g, 1e-12)
+    line = {"wall_s": time.perf_counter() - w0, "jobs": report.n_jobs,
+            "faults": [dataclasses.astuple(a) for a in plan.actions],
+            "degradations": list(degradations), "ledger_audit_rel_err": audit,
+            "admission_launches": {n: fn.launches - before[n]
+                                   for n, fn in kernel_fns.items()}}
+    # examples/fleet_durable.py's acceptance (:106-113)
+    if not (report.n_completed == report.n_jobs == oracle.n_jobs
+            and report.total_actual_g == oracle.total_actual_g
+            and report.ledger_total_g == oracle.ledger_total_g
+            and report.outcomes == oracle.outcomes
+            and (report.n_events, report.n_steps)
+            == (oracle.n_events, oracle.n_steps) and audit < 1e-9):
+        raise RuntimeError(f"fleet durable: the restored run differs from "
+                           f"its oracle: {line}")
+    if not any("respawned" in d for d in degradations):
+        raise RuntimeError(f"fleet durable: no respawn in {degradations}")
+    if not all(line["admission_launches"].values()):
+        raise RuntimeError(f"fleet durable: admission launched the kernels "
+                           f"{line['admission_launches']} times")
+    return line
+
+
+def stream_run(sharded, streaming, sc, t0: float, pipeline: str,
+               kernel_fns: dict, threads) -> tuple:
+    """examples/fleet_stream.py's ``_run`` on the fused backend, the
+    gateway's batch planner wrapped in a per-thread launch count."""
+    fleet = sharded.ShardedFleet(list(sc.ftns), n_shards=FLEET_N_SHARDS,
+                                 migration_threshold=250.0, device=DEVICE)
+    for shock in sc.shocks:
+        fleet.inject_shock(t0 + shock.t_off_s, shock.factor,
+                           duration_s=shock.duration_s, zones=shock.zones)
+    gw = streaming.StreamingGateway(
+        fleet, window_s=STREAM_WINDOW_S, max_batch=STREAM_MAX_BATCH,
+        max_inflight=STREAM_MAX_INFLIGHT, backfill=True, pipeline=pipeline,
+        device=DEVICE)
+    batch = CallTimer(gw._batch_planner, "plan_batch", kernel_fns, threads)
+    w0 = time.perf_counter()
+    report = gw.run(sc.jobs(STREAM_SEED, t0))
+    _sync()
+    return report, gw.stats(), batch, time.perf_counter() - w0
+
+
+def fleet_stream(kernel_fns: dict, threads, split) -> dict:
+    """Phase 6d: the bursty_day stream through a StreamingGateway on the
+    fused kernels, pipeline off then on: the example's acceptance, two
+    bit-identical merges, and the gateway's batch planner launching both
+    kernels (on its planner thread when pipelined). ``threads`` (a live
+    :class:`ThreadLaunches`) counts launches by thread, ``split`` (a live
+    :class:`SplitTimer`) gives the kernels' device time with pipeline
+    off."""
+    from repro_torch.core.carbon.intensity import PAPER_WINDOW_T0 as t0
+    from repro_torch.core.controlplane import sharded, streaming
+    from repro_torch.core.workloads import get_scenario
+
+    sc = get_scenario("bursty_day")
+    line, reports = {}, {}
+    for mode in ("off", "on"):
+        split.reset()
+        report, st, batch, wall = stream_run(sharded, streaming, sc, t0,
+                                             mode, kernel_fns, threads)
+        # with the planner thread launching too, two threads' event pairs
+        # on the one stream bracket each other's kernels, so events time
+        # the kernels only when one thread launches
+        kms = sum(split.kernel_ms().values()) if mode == "off" else None
+        reports[mode] = report
+        audit = abs(report.ledger_total_g - report.total_actual_g) \
+            / max(report.total_actual_g, 1e-12)
+        line[mode] = {
+            "wall_s": wall, "jobs_per_s": report.n_jobs / wall,
+            "jobs": report.n_jobs, "batches": st.n_batches,
+            "mean_batch": st.mean_batch, "max_batch": st.max_batch,
+            "admission_p50_s": st.admission_p50_s,
+            "admission_p95_s": st.admission_p95_s,
+            "deferred": st.n_deferred, "promotions": st.n_promotions,
+            "backfill_promotions": st.n_backfill_promotions,
+            "sla_misses": report.sla_misses, "ledger_audit_rel_err": audit,
+            "pipelined_batches": st.n_pipelined_batches,
+            "plan_wall_s": st.plan_wall_s, "stall_wall_s": st.stall_wall_s,
+            "overlap_fraction": st.overlap_fraction,
+            "batch_planner_calls": batch.calls,
+            "batch_planner_wall_s": batch.wall_s,
+            "batch_planner_launches": batch.launches,
+            "kernel_ms": kms,
+            "device_busy_share": None if kms is None else kms / 1e3 / wall}
+        # examples/fleet_stream.py's acceptance (:72-96)
+        if not (report.n_completed == report.n_jobs == st.n_jobs
+                and st.n_deferred > 0 and st.n_backfill_promotions > 0
+                and report.sla_misses == 0 and audit < 1e-9):
+            raise RuntimeError(f"fleet stream ({mode}): {line[mode]}")
+        if not all(batch.launches.values()):
+            raise RuntimeError(f"fleet stream ({mode}): the gateway's batch "
+                               f"planner launched {batch.launches}")
+    if line["on"]["pipelined_batches"] <= 0:
+        raise RuntimeError("fleet stream: no batch was planned on the "
+                           "planner thread")
+    same_report(reports["on"], reports["off"], "fleet stream on vs off")
+    return line
+
+
+def lattice_day(kernel_fns: dict, split=None) -> dict:
+    """Phase 6e: examples/fleet_day.py's act three, edge_lattice_day on
+    the 200-zone lattice, fused admission, then the numpy day as the
+    oracle for decisions. With ``split`` (a live :class:`SplitTimer`) the
+    fused day's line carries its kernel ms and the device's busy share."""
+    from repro_torch.core.carbon import lattice
+    from repro_torch.core.carbon.intensity import PAPER_WINDOW_T0 as t0
+    from repro_torch.core.controlplane import sharded
+    from repro_torch.core.workloads import get_scenario
+
+    sc = get_scenario("edge_lattice_day")
+    jobs = list(sc.jobs(seed=LATTICE_SEED, t0=t0))
+    runs = {}
+    for backend in ("fused", "numpy"):
+        if split is not None:
+            split.reset()
+        before = {n: fn.launches for n, fn in kernel_fns.items()}
+        fleet = sharded.ShardedFleet(
+            list(sc.ftns), n_shards=FLEET_N_SHARDS, migration_threshold=250.0,
+            batch_backend=backend, shard_backend="numpy", obs=True,
+            device=DEVICE)
+        w0 = time.perf_counter()
+        fleet.submit_many(jobs)
+        _sync()
+        admit_s = time.perf_counter() - w0
+        report = fleet.run()
+        _sync()
+        stats = {"admission_s": admit_s, "wall_s": time.perf_counter() - w0,
+                 "launches": {n: fn.launches - before[n]
+                              for n, fn in kernel_fns.items()}}
+        if split is not None and backend == "fused":
+            kms = split.kernel_ms()
+            stats.update(kernel_ms=kms, device_busy_share=sum(kms.values())
+                         / 1e3 / stats["wall_s"])
+        runs[backend] = (fleet, report, stats)
+    fleet, report, stats = runs["fused"]
+    audit = abs(report.ledger_total_g - report.total_actual_g) \
+        / max(report.total_actual_g, 1e-12)
+    by_uuid = {j.uuid: j for j in jobs}
+    cross = [o for o in report.outcomes
+             if o.source != by_uuid[o.job_uuid].replicas[0]
+             and lattice.tier_of_endpoint(o.source)
+             != lattice.tier_of_endpoint(by_uuid[o.job_uuid].replicas[0])]
+    line = {**stats, "jobs": len(jobs), "zones": len(
+        lattice.default_lattice(200).zones),
+            "cells": fleet.planner.last_batch_cells,
+            "cross_tier": len(cross), "ledger_audit_rel_err": audit,
+            "numpy_day": runs["numpy"][2],
+            "vs_numpy_day": compare_fleet_days(fleet, report,
+                                               runs["numpy"][0],
+                                               runs["numpy"][1],
+                                               "lattice day")}
+    # examples/fleet_day.py's act three acceptance (:170-186)
+    if not (report.n_completed == len(jobs) and audit < 1e-9 and cross):
+        raise RuntimeError(f"lattice day: {line}")
+    if not all(stats["launches"].values()):
+        raise RuntimeError(f"lattice day: admission launched the kernels "
+                           f"{stats['launches']} times")
     return line
 
 
@@ -1413,12 +1828,16 @@ def main() -> int:
     from repro_torch.runtime import serve_loop as sl
     from repro_torch.runtime import train_loop as tl
 
+    clock = PhaseClock()
+
     # 1. device
     card = gpu_line()
     print(card, flush=True)
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
+
+    clock.mark("1 device")
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
@@ -1434,6 +1853,8 @@ def main() -> int:
                                        "smem")):
                 print("ptxas:", line.strip(), flush=True)
 
+    clock.mark("2 build")
+
     # 3. kernels against their plain versions
     ftns, job = planner_scale_jobs(tp)
     planner = tp.TorchCarbonPlanner(ftns, device="cuda",
@@ -1442,6 +1863,8 @@ def main() -> int:
                             built[grid_cuda._SOURCE.name][1])
     kernel_fns = {"rate_prefix": grid_cuda.rate_prefix,
                   "sweep": grid_cuda.sweep}
+
+    clock.mark("3 kernels")
 
     # 4. the main path: plan_batch over 4096-job windows
     for fn in kernel_fns.values():
@@ -1489,6 +1912,8 @@ def main() -> int:
     for row in kernels:
         row["launches"] = launches[row["name"]]
 
+    clock.mark("4 plan_batch windows")
+
     # 5. oracle: sampled plans against the port's numpy plan_batch
     idxs = sorted({int(i) for i in
                    np.linspace(0, total_jobs - 1, N_SAMPLED).round()})
@@ -1511,16 +1936,44 @@ def main() -> int:
         raise RuntimeError(f"fused plans diverge from the numpy oracle: "
                            f"{mism} mismatches, emissions rel {rel:.3e}")
 
+    clock.mark("5 oracle")
+
     # 6. the fleet day: ShardedFleet -> FleetController x 4 ->
     # CarbonAwareQueue -> plan_batch -> the planner kernels, then the same
     # day on the numpy oracle
     with SplitTimer(grid_cuda) as split:
-        emit({"fleet_main_path": fleet_day(kernel_fns, split)})
+        line, day_report = fleet_day(kernel_fns, split)
+        emit({"fleet_main_path": line})
+    clock.mark("6 fleet day")
+
+    # 6b. the same day on four spawn workers (a CUDA context each) through
+    # the fused kernels, two worker kills, a checkpoint at hour 12 and a
+    # restore onto fresh workers: phase 6's report bit for bit
+    emit({"fleet_workers": fleet_workers(day_report)})
+    clock.mark("6b fleet workers")
+
+    # 6c. examples/fleet_durable.py on fork workers after CUDA is live
+    emit({"fleet_durable": fleet_durable(kernel_fns)})
+    clock.mark("6c fleet durable")
+
+    # 6d. the bursty_day stream through the StreamingGateway, pipeline off
+    # and on, the gateway's planner thread launching the kernels
+    with ThreadLaunches(grid_cuda._library()) as threads, \
+            SplitTimer(grid_cuda) as split:
+        emit({"fleet_stream": fleet_stream(kernel_fns, threads, split)})
+    clock.mark("6d fleet stream")
+
+    # 6e. the lattice day: edge_lattice_day on 200 zones, fused admission
+    with SplitTimer(grid_cuda) as split:
+        emit({"lattice_day": lattice_day(kernel_fns, split)})
+    clock.mark("6e lattice day")
 
     # 7. the flash kernel against its plain version at the prefill's shapes
     cfg = get_config(ARCH)
     flash_cases = check_flash(
         fa, cfg, ptxas_usage(built[fa._SOURCE.name][1], FLASH_KERNEL))
+
+    clock.mark("7 flash")
 
     # 8. the serving main path. cuBLAS reduces bf16 GEMMs in f32 (no
     # reduced-precision reduction) and f32 GEMMs in full f32 (no TF32), so
@@ -1535,6 +1988,7 @@ def main() -> int:
     emit({"profile": profile_serving(M, srv, probe.epochs[0]["tokens"])})
     del srv, probe
     torch.cuda.empty_cache()
+    clock.mark("8-9 serving")
 
     # 10. training mamba2-370m: the SSD kernel against its plain version, one
     # step on the kernel path against the plain path, then the Trainer
@@ -1553,6 +2007,7 @@ def main() -> int:
     emit({"train_profile": profile_training(ops, tr)})
     del tr
     torch.cuda.empty_cache()
+    clock.mark("10 training")
 
     # 11. results
     worst = max(flash_cases, key=lambda c: c["rel_rms_err"])
@@ -1575,6 +2030,7 @@ def main() -> int:
          **{k: ssd_case[k] for k in (
              "max_abs_err", "y_rel_rms_err", "h_rel_rms_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    emit({"phase_s": clock.phases})
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

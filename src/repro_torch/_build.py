@@ -5,19 +5,22 @@ by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/repro_torch_kernels/``, named by a hash of the source and the
 flags, so an edited source or flag set never loads a stale build. Nothing
 is built at import: a wrapper builds its library at first use, and
-:func:`build` starts several ``nvcc`` processes at once.
+:func:`build` starts several ``nvcc`` processes at once. :func:`load`
+builds, loads and declares each library once per process under a lock,
+so threads that first launch a kernel at the same time (the streaming
+gateway's planner thread and the coordinator) start one ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" \
@@ -91,8 +94,26 @@ def build(*sources: KernelSource) -> Dict[str, Tuple[Path, str]]:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def load(src: KernelSource) -> ctypes.CDLL:
-    """The source's library, built first if needed; the caller declares
-    each function's ``argtypes`` and ``restype``."""
-    return ctypes.CDLL(str(build(src)[src.name][0]))
+_LOAD_LOCK = threading.Lock()
+_LOADED: Dict[KernelSource, ctypes.CDLL] = {}
+
+
+def load(src: KernelSource,
+         declare: Optional[Callable[[ctypes.CDLL], None]] = None
+         ) -> ctypes.CDLL:
+    """The source's library, built first if needed, with ``declare(lib)``
+    (each function's ``argtypes`` and ``restype``) run on it before any
+    caller sees it. Once per process: the first callers serialise on a
+    lock, so two threads never start two ``nvcc`` runs on one temporary
+    file, and every caller gets the one declared library."""
+    lib = _LOADED.get(src)
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(src)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(src)[src.name][0]))
+            if declare is not None:
+                declare(lib)
+            _LOADED[src] = lib
+    return lib

@@ -10,6 +10,12 @@ per-step accounting and the transfer engine's congestion trace read.
 The planner's batched paths (``grid_torch``, ``grid_cuda``) read their
 noise tables and device weights from here and are held against it.
 
+Snapshots cross process boundaries: :meth:`CarbonField.freeze` cuts a
+picklable :class:`FrozenField` that worker processes, the streaming
+gateway's batch planner and checkpoints thaw into a field answering
+bit-identically, and :func:`register_field_setup` records the topology
+installs (the zone lattice, ingested traces) a spawn worker replays first.
+
 Every method reproduces the scalar reference (``intensity.GridRegion.ci``,
 ``path.Hop.ci``, ``score.transfer_emissions_g_reference``) within float
 tolerance. ``default_field()`` is the process-wide instance the scheduler
@@ -17,8 +23,11 @@ stack shares, so planner, time-shift and overlay hit one noise cache.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
+import importlib
 import math
+import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -102,6 +111,52 @@ class _NoiseTable:
                 return float(vals[off])
         return float(self.lookup(key, np.asarray([idx]))[0])
 
+    def snapshot(self) -> Tuple[Tuple[str, int, np.ndarray], ...]:
+        """The cached ranges as an immutable (key, h0, vals) tuple — the
+        arrays are never mutated in place (extension rebinds), so sharing
+        them with a snapshot is safe."""
+        return tuple((k, self._h0[k], self._vals[k]) for k in self._h0)
+
+    def restore(self, snap: Sequence[Tuple[str, int, np.ndarray]]) -> None:
+        for key, h0, vals in snap:
+            self._h0[key] = int(h0)
+            self._vals[key] = np.asarray(vals)
+
+
+# --- topology setup replay -------------------------------------------------
+# Zones registered at runtime (the mesoscale lattice, ingested traces) are
+# module state *outside* the field's caches: REGIONS entries, IP/endpoint
+# registries, route providers. A spawn worker starts from a clean
+# interpreter, so a FrozenField alone cannot make its queries resolve —
+# the registrations must replay there. Subsystems record a deterministic,
+# picklable (entrypoint, args) step here; freeze() captures the list and
+# thaw() replays it (idempotently) before restoring the caches.
+_FIELD_SETUP: List[Tuple[str, Tuple]] = []
+
+
+def register_field_setup(entrypoint: str, *args) -> None:
+    """Record a topology-install step (``"pkg.module:function"`` + args,
+    all picklable) to replay in any process that thaws a frozen field cut
+    after this call. Duplicate records collapse."""
+    if ":" not in entrypoint:
+        raise ValueError(f"entrypoint must be 'module:function', got "
+                         f"{entrypoint!r}")
+    entry = (entrypoint, tuple(args))
+    if entry not in _FIELD_SETUP:
+        _FIELD_SETUP.append(entry)
+
+
+def replay_field_setup(entries: Sequence[Tuple[str, Tuple]]) -> None:
+    """Run recorded setup steps (import + call; each step is idempotent by
+    contract) and adopt them into this process's own record so a chained
+    freeze keeps carrying them."""
+    for entrypoint, args in entries:
+        mod_name, fn_name = entrypoint.split(":", 1)
+        getattr(importlib.import_module(mod_name), fn_name)(*args)
+        entry = (entrypoint, tuple(args))
+        if entry not in _FIELD_SETUP:
+            _FIELD_SETUP.append(entry)
+
 
 class CarbonField:
     """Broadcastable CI queries + prefix-sum emission integrals.
@@ -121,6 +176,14 @@ class CarbonField:
         self._weight_fn_cache: Dict[Tuple, Callable] = {}
 
     # --- zone level --------------------------------------------------------
+    def ci(self, zones: Union[str, Sequence[str]], ts: ArrayLike,
+           calibrated: Optional[bool] = None) -> np.ndarray:
+        """CI for one zone or a stack of zones: shape (n_zones,) + ts.shape
+        (the leading axis is dropped when ``zones`` is a single string)."""
+        if isinstance(zones, str):
+            return self.zone_ci(zones, ts, calibrated)
+        return np.stack([self.zone_ci(z, ts, calibrated) for z in zones])
+
     def zone_ci(self, zone: str, ts: ArrayLike,
                 calibrated: Optional[bool] = None) -> np.ndarray:
         """Vectorized ``GridRegion.ci`` (plus optional paper calibration).
@@ -388,13 +451,108 @@ class CarbonField:
         self._weight_fn_cache[key] = w_of
         return w_of
 
+    def __getstate__(self) -> Dict:
+        """Pickle support for checkpoints (``controlplane.persistence``):
+        the noise/band anchors travel — they are what make a restored
+        field's queries bit-identical without re-hashing — while the pure
+        caches are dropped (the weight-fn cache holds closures, and both
+        rebuild on demand to the same floats)."""
+        d = self.__dict__.copy()
+        d["_hop_grid_cache"] = {}
+        d["_weight_fn_cache"] = {}
+        return d
+
+    def freeze(self, *, include_grids: bool = True) -> "FrozenField":
+        """A pickle-cheap, read-only snapshot of this field's warmed state:
+        the hashed noise ranges, per-device bands and (optionally) the
+        prefix-sum hop-CI grids. A worker process thaws it into a field
+        whose every query is bit-identical to this one's without re-hashing
+        a single (key, hour). The snapshot aliases the live arrays (they
+        are never mutated in place; cache extension rebinds), so freezing
+        is O(cached keys), not O(bytes)."""
+        grids: Tuple[Tuple[Tuple, np.ndarray], ...] = ()
+        if include_grids:
+            grids = tuple(self._hop_grid_cache.items())
+        return FrozenField(
+            calibrated=self.calibrated,
+            zone_noise=self._zone_noise.snapshot(),
+            hop_noise=self._hop_noise.snapshot(),
+            hop_base=tuple(self._hop_base.items()),
+            grids=grids,
+            setup=tuple(_FIELD_SETUP))
+
+
+@dataclasses.dataclass(frozen=True)
+class FrozenField:
+    """What :meth:`CarbonField.freeze` returns: immutable, picklable, and
+    cheap to thaw. ``zone_noise``/``hop_noise`` are the dense hashed
+    ranges ((key, h0, vals) per key), ``hop_base`` the per-IP sub-metering
+    bands, ``grids`` the prefix-sum hop-CI grid cache (keyed by hashable
+    path identity, so a thawed field's grid lookups hit by value), and
+    ``setup`` the recorded :func:`register_field_setup` steps that thaw
+    replays before any query runs."""
+    calibrated: bool
+    zone_noise: Tuple[Tuple[str, int, np.ndarray], ...]
+    hop_noise: Tuple[Tuple[str, int, np.ndarray], ...]
+    hop_base: Tuple[Tuple[str, float], ...]
+    grids: Tuple[Tuple[Tuple, np.ndarray], ...] = ()
+    setup: Tuple[Tuple[str, Tuple], ...] = ()
+
+    def thaw(self) -> CarbonField:
+        """Rebuild a warm :class:`CarbonField` from the snapshot."""
+        replay_field_setup(self.setup)
+        f = CarbonField(calibrated=self.calibrated)
+        f._zone_noise.restore(self.zone_noise)
+        f._hop_noise.restore(self.hop_noise)
+        f._hop_base = dict(self.hop_base)
+        for key, arr in self.grids:    # freeze() is bounded by the cap
+            f._hop_grid_cache[key] = arr
+        return f
+
+    @property
+    def nbytes(self) -> int:
+        """Payload size (the spawn-worker shipping cost)."""
+        return (sum(v.nbytes for _, _, v in self.zone_noise)
+                + sum(v.nbytes for _, _, v in self.hop_noise)
+                + sum(a.nbytes for _, a in self.grids))
+
+
 _DEFAULT: Optional[CarbonField] = None
+_DEFAULT_PID: Optional[int] = None
+_DEFAULT_FROZEN: Optional[FrozenField] = None
+
+
+def install_frozen_default(frozen: FrozenField) -> CarbonField:
+    """Make ``frozen`` the source of this process's default field: thaw it
+    now and remember it, so a later process boundary (a fork of *this*
+    process) rebuilds from the same snapshot. Worker entrypoints call this
+    before touching any scheduler code — it is what guarantees a worker's
+    ``default_field()`` is warm and value-identical to the coordinator's
+    instead of a silently re-hashed divergent copy."""
+    global _DEFAULT, _DEFAULT_PID, _DEFAULT_FROZEN
+    _DEFAULT_FROZEN = frozen
+    _DEFAULT = frozen.thaw()
+    _DEFAULT_PID = os.getpid()
+    return _DEFAULT
 
 
 def default_field() -> CarbonField:
     """The process-wide shared field (one noise/trace cache for planner,
-    time/space/overlay shifting)."""
-    global _DEFAULT
+    time/space/overlay shifting).
+
+    Fork/spawn safety: the cache is stamped with the pid that built it. A
+    worker that inherited module state across a fork rebuilds from the
+    frozen snapshot registered by :func:`install_frozen_default`, if any;
+    otherwise it adopts the inherited copy-on-write state as its own. A
+    spawn worker starts with a clean module and gets a warm field only
+    through ``install_frozen_default``, which the worker runner's
+    entrypoint calls."""
+    global _DEFAULT, _DEFAULT_PID
+    if _DEFAULT is not None and _DEFAULT_PID != os.getpid():
+        _DEFAULT = _DEFAULT_FROZEN.thaw() \
+            if _DEFAULT_FROZEN is not None else _DEFAULT
+        _DEFAULT_PID = os.getpid()
     if _DEFAULT is None:
         _DEFAULT = CarbonField()
+        _DEFAULT_PID = os.getpid()
     return _DEFAULT

@@ -351,8 +351,7 @@ class FleetController:
         self.__dict__.update(d)
         self.completion_hooks = []
         # the planner's drift hook is a bound method of this controller —
-        # re-wired here (the port's planner does not yet null it in a
-        # __getstate__ of its own: ROADMAP queue 1, item 2)
+        # nulled by TorchCarbonPlanner.__getstate__, re-wired here
         self.planner.emission_scale_fn = self._emission_scale
         for rec in self._records.values():
             self._rebuild_routes(rec)

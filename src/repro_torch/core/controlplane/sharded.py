@@ -28,15 +28,18 @@ salted ``hash``):
   shard and its throughput-model corrections stay coherent;
 * any callable ``job -> int``.
 
-Execution is sequential in-process (``parallel="off"`` — the pinned
-deterministic oracle). The reference's worker-process engines
-(``parallel="fork" | "spawn" | "auto"``) are not ported yet (ROADMAP
-queue 1, item 2) and raise ``NotImplementedError``.
+Execution is sequential in-process by default (``parallel="off"`` — the
+pinned deterministic oracle); ``parallel="fork" | "spawn" | "auto"``
+swaps the in-process controllers for :class:`ShardProxy` handles onto a
+:class:`ParallelShardRunner` — one worker process per shard over a frozen
+carbon-field snapshot, same API, bit-identical merged totals on the same
+shard planner backend (see ``core.controlplane.parallel``).
 
-A copy of the reference's ``core/controlplane/sharded.py``, less the
-worker runner: the shard and admission planners are
-:class:`TorchCarbonPlanner` on ``device`` (``cuda`` unless the caller
-passes ``"cpu"``).
+A copy of the reference's ``core/controlplane/sharded.py``: the shard and
+admission planners are :class:`TorchCarbonPlanner` on ``device`` (``cuda``
+unless the caller passes ``"cpu"``). A CUDA context does not survive a
+fork, so fork workers plan on the numpy oracle on the CPU, and a fork
+fleet whose shards would plan on the card is refused.
 """
 from __future__ import annotations
 
@@ -48,14 +51,22 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 
+from repro_torch._device import resolve_device
 from repro_torch.core.carbon.field import CarbonField, default_field
 from repro_torch.core.controlplane.controller import (FleetController,
                                                       FleetReport)
+from repro_torch.core.controlplane.parallel import (
+    FORK_SAFE_BACKEND, FaultPlan, ParallelShardRunner, ShardSpec,
+    SupervisionPolicy, resolve_mode)
 from repro_torch.core.obs import metrics as obs_metrics
+from repro_torch.core.obs.metrics import log_bounds
 from repro_torch.core.obs.observer import ObsConfig, as_observer
 from repro_torch.core.scheduler.overlay import FTN
 from repro_torch.core.scheduler.planner import (TorchCarbonPlanner,
                                                 TransferJob)
+
+# supervisor recovery-latency histogram bounds: 1 ms .. 1000 s
+_RECOVERY_BOUNDS = log_bounds(1e-3, 1e3, per_decade=2)
 
 
 def _stable_hash(key: str) -> int:
@@ -137,14 +148,22 @@ class ShardedFleet:
     ``"torch"`` scores the lattice as torch ops; ``"numpy"`` is the
     per-job oracle). ``shard_backend`` is the *shard planners'* batch
     backend — the in-run re-plan sweeps — and defaults to
-    ``batch_backend``. ``device`` places every planner (``cuda`` unless
-    given; without a GPU pass ``"cpu"``, or construction raises).
-    Remaining keyword arguments are forwarded to every
-    ``FleetController``.
+    ``batch_backend``, except under ``parallel="fork"`` where it defaults
+    to the numpy oracle (CUDA does not survive a fork; asking for
+    ``"fused"``, or ``"torch"`` on ``cuda``, under fork raises
+    ``ValueError``). ``device`` places every planner (``cuda`` unless
+    given; without a GPU pass ``"cpu"``, or construction raises); fork
+    workers plan on the CPU. Remaining keyword arguments are forwarded to
+    every ``FleetController``.
 
-    ``parallel`` selects the shard execution engine: only ``"off"``
-    (drain shards sequentially in-process — the pinned oracle) is
-    ported; the worker-process engines raise ``NotImplementedError``.
+    ``parallel`` selects the shard execution engine: ``"off"`` (default)
+    drains shards sequentially in-process — the pinned oracle — while
+    ``"fork"`` / ``"spawn"`` / ``"auto"`` run one worker process per
+    shard over a frozen snapshot of ``field``, started lazily at the
+    first shard command (so the snapshot captures the admission-warmed
+    caches). A spawn worker opens its own CUDA context. A parallel fleet
+    should be :meth:`close`\\ d (or used as a context manager) to reap
+    its workers.
     """
 
     def __init__(self, ftns: Sequence[FTN], *, n_shards: int = 4,
@@ -153,6 +172,8 @@ class ShardedFleet:
                  batch_backend: str = "fused",
                  parallel: str = "off",
                  shard_backend: Optional[str] = None,
+                 supervision: Optional["SupervisionPolicy"] = None,
+                 fault_plan: Optional["FaultPlan"] = None,
                  device=None,
                  **controller_kw):
         if n_shards < 1:
@@ -163,24 +184,34 @@ class ShardedFleet:
         if parallel not in ("off", "fork", "spawn", "auto"):
             raise ValueError(f"parallel must be 'off', 'fork', 'spawn' or "
                              f"'auto', got {parallel!r}")
-        if parallel != "off":
-            raise NotImplementedError(
-                f"parallel={parallel!r}: the worker-process shard runner "
-                f"is not ported yet (ROADMAP queue 1, item 2); use "
-                f"parallel='off'")
+        device = resolve_device(device)
         self.field = field or default_field()
-        self.parallel = parallel
+        self.parallel = parallel if parallel == "off" \
+            else resolve_mode(parallel)
         if shard_backend is None:
-            shard_backend = batch_backend
+            shard_backend = FORK_SAFE_BACKEND \
+                if self.parallel == "fork" else batch_backend
+        if self.parallel == "fork" and (
+                shard_backend == "fused"
+                or (shard_backend == "torch" and device.type == "cuda")):
+            raise ValueError(
+                f"parallel='fork' cannot run shard_backend="
+                f"{shard_backend!r} on {device}: CUDA does not survive a "
+                f"fork (use parallel='spawn', or shard_backend='numpy')")
         self.shard_backend = shard_backend
+        # where a worker's shard planner runs: a fork child never touches
+        # CUDA, so it plans on the CPU
+        self._shard_device = "cpu" if self.parallel == "fork" \
+            else str(device)
         self.partition = partition
         self.ftns = list(ftns)
+        self._controller_kw = dict(controller_kw)
         # observability: each shard controller builds its *own* observer
         # from the obs= kwarg (a shared observer instance would interleave
         # spans in-process and diverge from the per-worker copies a
         # parallel run pickles — breaking the off/parallel bit-identity
         # contract), while the coordinator keeps a separate observer for
-        # fleet-level spans (admission, gateway)
+        # fleet-level spans (admission, gateway, supervisor degradations)
         obs_kw = controller_kw.get("obs")
         if obs_kw is not None and not isinstance(obs_kw, (bool, ObsConfig)):
             raise ValueError(
@@ -188,14 +219,33 @@ class ShardedFleet:
                 "(each shard builds its own observer; a shared "
                 "FleetObserver would break the off/parallel bit-identity)")
         self.obs = as_observer(obs_kw)
-        self.controllers = [
-            FleetController(
-                ftns, field=self.field,
-                planner=TorchCarbonPlanner(ftns, field=self.field,
-                                           batch_backend=shard_backend,
-                                           device=device),
-                **controller_kw)
-            for _ in range(n_shards)]
+        self._obs_folded = 0           # runner recoveries folded so far
+        if self.parallel != "off":
+            clash = {"planner", "engine", "field"} & set(controller_kw)
+            if clash:
+                raise ValueError(
+                    f"parallel workers rebuild their own {sorted(clash)} "
+                    f"from the shard spec; pass planner knobs via "
+                    f"shard_backend / batch_backend instead")
+        if fault_plan is not None and self.parallel == "off":
+            raise ValueError("fault_plan needs worker processes to fault; "
+                             "use parallel='fork'|'spawn'|'auto'")
+        self.supervision = supervision
+        self._runner: Optional[ParallelShardRunner] = None
+        if self.parallel == "off":
+            self.controllers = [
+                FleetController(
+                    ftns, field=self.field,
+                    planner=TorchCarbonPlanner(ftns, field=self.field,
+                                               batch_backend=shard_backend,
+                                               device=device),
+                    **controller_kw)
+                for _ in range(n_shards)]
+        else:
+            self._runner = ParallelShardRunner(
+                n_shards, self._shard_specs, mode=self.parallel,
+                supervision=supervision, fault_plan=fault_plan)
+            self.controllers = self._runner.proxies
         # fleet-level admission planner: scores every submitted job's grid
         # in ONE batched call (base-capacity throughput model — in-run
         # corrections are the shards' re-plan sweeps' job). Shocks
@@ -213,6 +263,28 @@ class ShardedFleet:
     @property
     def n_shards(self) -> int:
         return len(self.controllers)
+
+    @property
+    def degradations(self) -> tuple:
+        """Supervisor-surfaced fault handling so far (worker respawns,
+        backend fallbacks, parallel -> off) — empty for a sequential
+        fleet and for a fault-free parallel run."""
+        if self._runner is None:
+            return ()
+        return tuple(self._runner.degradations)
+
+    def _shard_specs(self) -> List[ShardSpec]:
+        """Worker blueprints, built lazily at worker start: the field is
+        frozen *then*, so whatever warmed it (typically the fleet-level
+        admission ``plan_batch``) ships with the snapshot instead of
+        being re-hashed N times."""
+        spec = ShardSpec(
+            ftns=tuple(self.ftns),
+            controller_kw=tuple(sorted(self._controller_kw.items())),
+            batch_backend=self.shard_backend,
+            frozen=self.field.freeze(),
+            device=self._shard_device)
+        return [spec] * len(self.controllers)
 
     def shard_of(self, job: TransferJob) -> int:
         if callable(self.partition):
@@ -233,7 +305,8 @@ class ShardedFleet:
         slot) grid stack is scored in one fleet-level ``plan_batch`` call
         (the two planner kernels on the fused batch backend), then each
         shard's arrivals are enqueued as one plan-carrying group — shards
-        never replan at arrival, only at their drift sweeps.
+        never replan at arrival, only at their drift sweeps, and a parallel
+        fleet ships each shard one wire message instead of one per job.
         Grouping is stable, so per-shard arrival order (and thus the
         event seq tiebreak) is identical to a per-job submit loop."""
         jobs = list(jobs)
@@ -280,7 +353,8 @@ class ShardedFleet:
                  quanta: Optional[PumpQuanta] = None,
                  boundaries: Sequence[float] = ()) -> int:
         """One bounded time quantum across every shard (the streaming
-        gateway's watermark pump), sequentially in-process. Returns the
+        gateway's watermark pump): sequentially in-process, or as one
+        barriered concurrent quantum over the worker pool. Returns the
         total events processed.
 
         With ``quanta`` set the single quantum becomes an adaptive
@@ -289,9 +363,11 @@ class ShardedFleet:
         one. Boundaries are the caller's ``boundaries`` (the gateway
         passes upcoming batch closes) plus every announced shock's onset
         and end; the schedule starts at the earliest *due* event, so idle
-        sim spans cost one barrier, not span/coarse_s of them. The
-        schedule is pure sim-state arithmetic, so determinism contracts
-        are untouched."""
+        sim spans cost one barrier, not span/coarse_s of them. Worker hang
+        deadlines rescale with each sub-quantum's share of a coarse one
+        (``ParallelShardRunner.pump_all(deadline_scale=...)``). The
+        schedule is pure sim-state arithmetic — every mode pumps through
+        identical cuts, so determinism contracts are untouched."""
         if quanta is None or until is None or not math.isfinite(until):
             return self._pump_quantum(until, strict=strict, horizon=horizon)
         peeks = [t for t in (ctl.events.peek_t()
@@ -310,41 +386,103 @@ class ShardedFleet:
         # step batches would change the event stream vs the single-quantum
         # pump, breaking its exact-replay contract
         eff_horizon = until if horizon is None else horizon
-        return sum(self._pump_quantum(cut, strict=strict,
-                                      horizon=eff_horizon)
-                   for cut in quantum_schedule(t0, until, bounds, quanta))
+        total, prev = 0, t0
+        for cut in quantum_schedule(t0, until, bounds, quanta):
+            scale = min(max((cut - prev) / quanta.coarse_s, 0.1), 1.0)
+            total += self._pump_quantum(cut, strict=strict,
+                                        horizon=eff_horizon,
+                                        deadline_scale=scale)
+            prev = cut
+        return total
 
     def _pump_quantum(self, until: Optional[float], *, strict: bool,
-                      horizon: Optional[float]) -> int:
+                      horizon: Optional[float],
+                      deadline_scale: float = 1.0) -> int:
+        if self._runner is not None:
+            return self._runner.pump_all(until, strict=strict,
+                                         horizon=horizon,
+                                         deadline_scale=deadline_scale)
         return sum(ctl.pump(until, strict=strict, horizon=horizon)
                    for ctl in self.controllers)
 
     def run_shards(self, until: Optional[float] = None) -> List[FleetReport]:
         """Drain every shard and return the per-shard reports in shard
-        order (also kept on ``self.shard_reports``)."""
-        reports = [ctl.run(until) for ctl in self.controllers]
+        order (also kept on ``self.shard_reports``) — sequentially
+        in-process, or concurrently across the worker pool."""
+        if self._runner is not None:
+            reports = self._runner.run_all(until)
+        else:
+            reports = [ctl.run(until) for ctl in self.controllers]
         self.shard_reports = reports
         return reports
 
     def run(self, until: Optional[float] = None) -> FleetReport:
-        """Drain every shard sequentially in-process and merge: the
-        exact-sum :meth:`FleetReport.merged` over shard order, with the
-        merged ``jobs_per_s`` from the measured coordinator wall."""
+        """Drain every shard and merge. With ``parallel="off"`` shards run
+        sequentially in-process; otherwise each runs to completion in its
+        own worker and only the report crosses back — either way the
+        merge is the exact-sum :meth:`FleetReport.merged` over the same
+        shard order, and the merged ``jobs_per_s`` uses the measured
+        coordinator wall."""
         wall0 = time.perf_counter()
         reports = self.run_shards(until)
         rep = FleetReport.merged(
             reports, wall_s=time.perf_counter() - wall0)
+        deg = self.degradations
+        if deg:
+            rep = dataclasses.replace(
+                rep, degradations=rep.degradations + deg)
         return self.attach_obs(rep)
 
     def attach_obs(self, rep: FleetReport) -> FleetReport:
         """Fold the coordinator's observability state into a merged
-        report: coordinator spans (admission) lead and shard traces
-        follow shard-major — same stable order as outcomes."""
+        report: supervisor recoveries become degrade spans/metrics, then
+        coordinator spans (admission, gateway, degradations) lead and
+        shard traces follow shard-major — same stable order as
+        outcomes/degradations. Also called by the streaming gateway,
+        which builds its own merge from ``run_shards``."""
         if self.obs is None:
             return rep
+        self._fold_supervisor_obs()
         snaps = [s for s in (self.obs.metrics_snapshot(), rep.metrics)
                  if s]
         return dataclasses.replace(
             rep,
             trace=self.obs.trace() + rep.trace,
             metrics=obs_metrics.merged(snaps) if snaps else rep.metrics)
+
+    def _fold_supervisor_obs(self) -> None:
+        """Fold supervisor recovery records gathered so far into the
+        coordinator observer: one ``degrade`` span each (pinned at
+        t=-1.0 — recoveries have no sim-clock instant — so they sort
+        ahead of event spans) plus respawn/recovery-latency metrics.
+        Only the deterministic fields enter the span; the measured
+        recovery wall goes to metrics, which replay tests exclude."""
+        recs = list(getattr(self._runner, "recoveries", None) or ())
+        for r in recs[self._obs_folded:]:
+            self.obs.span("degrade", -1.0,
+                          shard=r.get("shard"),
+                          outcome=str(r.get("outcome")),
+                          reason=str(r.get("reason")),
+                          attempts=r.get("attempts"),
+                          replayed=r.get("replayed"),
+                          from_checkpoint=r.get("from_checkpoint"))
+            self.obs.counter("sup_recoveries_total",
+                             outcome=str(r.get("outcome"))).inc()
+            wall = r.get("wall_s")
+            if wall is not None:
+                self.obs.histogram("sup_recovery_wall_s",
+                                   bounds=_RECOVERY_BOUNDS).observe(wall)
+        self._obs_folded = len(recs)
+
+    # --- worker lifecycle ---------------------------------------------------
+    def close(self) -> None:
+        """Reap the worker pool (no-op for sequential fleets; idempotent).
+        Workers are per-fleet, so a fleet is single-use once closed."""
+        if self._runner is not None:
+            self._runner.close()
+
+    def __enter__(self) -> "ShardedFleet":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

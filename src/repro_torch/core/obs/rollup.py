@@ -43,9 +43,8 @@ def _zone_of(endpoint: str) -> str:
 def _tier_of(endpoint: str) -> str:
     """Lattice tier (edge/metro/core) of an endpoint, "-" outside a
     lattice topology (the hand-built testbed endpoints)."""
-    # the port has no zone lattice yet (ROADMAP queue 1, item 3), so every
-    # endpoint is a testbed endpoint
-    return "-"
+    from repro_torch.core.carbon import lattice
+    return lattice.tier_of_endpoint(endpoint) or "-"
 
 
 @dataclasses.dataclass

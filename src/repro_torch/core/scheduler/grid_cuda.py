@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
+import threading
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -65,9 +65,7 @@ _SOURCE = KernelSource("planner_kernels", ("--fmad=false",))
 
 # --- build and bind ----------------------------------------------------------
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = load(_SOURCE)
+def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.planner_rate_prefix.argtypes = [ptr] * 7 + [i32] * 4 + [f64, ptr]
     lib.planner_rate_prefix.restype = i32
@@ -79,7 +77,11 @@ def _library() -> ctypes.CDLL:
     lib.planner_sweep_smem_bytes.restype = i32
     lib.planner_error_string.argtypes = [i32]
     lib.planner_error_string.restype = ctypes.c_char_p
-    return lib
+
+
+def _library() -> ctypes.CDLL:
+    """The bound library, built and declared once per process."""
+    return load(_SOURCE, _declare)
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
@@ -106,6 +108,16 @@ def _launch(fn, dev: torch.device, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     with torch.cuda.device(dev):
         return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    """One more launch on ``wrapper.launches``: under a lock, since the
+    streaming gateway's planner thread and the coordinator both launch."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -177,7 +189,7 @@ def rate_prefix(pp: torch.Tensor, zn: torch.Tensor, hn: torch.Tensor,
                   rel0.data_ptr(), tc.data_ptr(), r.data_ptr(), e.data_ptr(),
                   a, h, t_pad, w, float(dt_s))
     _raise_on(err, "rate_prefix")
-    rate_prefix.launches += 1
+    _count(rate_prefix)
     return r, e
 
 
@@ -261,7 +273,7 @@ def sweep(e: torch.Tensor, r: torch.Tensor, scl: torch.Tensor,
                   wd.data_ptr(), sla.data_ptr(), best.data_ptr(), c, h, t_pad,
                   s_pad, int(stride), float(dt_s), float(slot_s))
     _raise_on(err, "sweep")
-    sweep.launches += 1
+    _count(sweep)
     return best
 
 

@@ -156,6 +156,25 @@ class TorchCarbonPlanner:
         self.capture_greedy = True
         self._metrics = obs.registry
 
+    def __getstate__(self) -> dict:
+        """Pickle support for checkpoints and worker processes:
+        ``emission_scale_fn`` is the owning controller's bound hook, which
+        the controller re-wires in its own ``__setstate__``, so a planner
+        never drags a stale owner through a checkpoint; ``device`` travels
+        as its name. The planner holds no device tensors: the batch paths
+        build their tables per call."""
+        d = self.__dict__.copy()
+        d["emission_scale_fn"] = None
+        d["device"] = str(self.device)
+        return d
+
+    def __setstate__(self, d: dict) -> None:
+        """The device is restored as named and not queried: a restore may
+        place the planner elsewhere (``persistence.restore(device=...)``)
+        before it plans."""
+        self.__dict__.update(d)
+        self.device = torch.device(d["device"])
+
     def _leg_emissions(self, path: NetworkPath, receiver, job: TransferJob,
                        ts: np.ndarray, gbps: float) -> np.ndarray:
         """Emission integral for one leg over all candidate starts, on

@@ -29,7 +29,6 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional
 
@@ -42,9 +41,7 @@ _SOURCE = KernelSource("flash_attention")
 MAX_HEAD_DIM = 256                  # kMaxD in the source
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = load(_SOURCE)
+def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = ([ptr] * 4 + [i32] * 6 + [i64] * 12
                                         + [ctypes.c_float, i32, i32, ptr])
@@ -58,7 +55,11 @@ def _library() -> ctypes.CDLL:
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
         raise RuntimeError("flash_attention.cu and its wrapper disagree on "
                            "the largest head_dim")
-    return lib
+
+
+def _library() -> ctypes.CDLL:
+    """The bound library, built and declared once per process."""
+    return load(_SOURCE, _declare)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

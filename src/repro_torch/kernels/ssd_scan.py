@@ -31,7 +31,6 @@ calls that launched them (one per call, for the four passes).
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Tuple
 
@@ -45,9 +44,7 @@ _SOURCE = KernelSource("ssd_scan")
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 64, 128
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = load(_SOURCE)
+def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssd_scan_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [i64] * 13 + [ptr]
     lib.ssd_scan_workspace_bytes.argtypes = [i32] * 6
@@ -57,7 +54,11 @@ def _library() -> ctypes.CDLL:
     lib.ssd_scan_fwd.restype = i32
     lib.ssd_scan_error_string.argtypes = [i32]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
-    return lib
+
+
+def _library() -> ctypes.CDLL:
+    """The bound library, built and declared once per process."""
+    return load(_SOURCE, _declare)
 
 
 # ------------------------------------------------------------ plain version --

@@ -16,8 +16,10 @@ package's planner module, so both implementations plan identical inputs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import signal
 import subprocess
 import sys
 from pathlib import Path
@@ -70,6 +72,23 @@ SCALE_CASES: Dict[str, List[tuple]] = {
     "drift": [scale_spec(i) for i in scale_ids(4, 2)],
     "planner": [scale_spec(i) for i in scale_ids(8, 8)],
 }
+
+
+@contextlib.contextmanager
+def deadline(seconds: int):
+    """Raise ``TimeoutError`` in the main thread if the block runs past
+    ``seconds``: a case that starts worker processes bounds itself, so a
+    hung worker fails that case instead of holding the whole run."""
+    def expired(signum, frame):
+        raise TimeoutError(f"case ran past its {seconds} s deadline")
+
+    old = signal.signal(signal.SIGALRM, expired)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
 
 
 def warm_up_torch() -> None:

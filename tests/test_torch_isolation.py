@@ -87,6 +87,27 @@ def test_without_cuda_the_control_plane_raises_unless_told_cpu(monkeypatch):
         | {fleet.planner.device.type} == {"cpu"}
 
 
+def test_without_cuda_workers_gateway_and_restore_raise_unless_told_cpu(
+        monkeypatch):
+    from repro_torch.core.controlplane import StreamingGateway, persistence
+    cpu_fleet = ShardedFleet(FTNS, device="cpu")
+    ckpt = persistence.capture(cpu_fleet)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedFleet(FTNS, parallel="spawn")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingGateway(cpu_fleet)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        persistence.restore(ckpt)
+    with ShardedFleet(FTNS, parallel="spawn", device="cpu") as spawn:
+        assert spawn._shard_specs()[0].device == "cpu"
+    gw = StreamingGateway(cpu_fleet, device="cpu")
+    assert gw._batch_planner.device.type == "cpu"
+    restored = persistence.restore(ckpt, device="cpu")
+    assert {c.planner.device.type for c in restored.controllers} \
+        | {restored.planner.device.type} == {"cpu"}
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_port_file_calls_library_attention_or_a_compiler(path):

@@ -104,8 +104,18 @@ def test_shard_of_is_the_references_for_1000_uuids():
 
 @pytest.mark.parametrize("mode", ["fork", "spawn", "auto"])
 def test_worker_engines_are_not_ported(mode):
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        _port_fleet(parallel=mode)
+    """Named when the worker engines raised NotImplementedError; they are
+    ported now (tests/test_torch_parallel.py runs them). Each mode builds
+    its worker runner lazily, starting no process until the first shard
+    command; a fork fleet's shards default to the numpy oracle on the
+    CPU, as the reference's do."""
+    start = "spawn" if mode == "spawn" else "fork"
+    with _port_fleet(parallel=mode) as fleet:
+        assert fleet.parallel == start
+        assert fleet._runner is not None and not fleet._runner.started
+        assert fleet.shard_backend == ("fused" if start == "spawn"
+                                       else "numpy")
+        assert fleet.degradations == ()
 
 
 def test_bad_arguments_are_refused_like_the_reference():
