@@ -599,33 +599,27 @@ class ThreadLaunches:
 
 class CallTimer:
     """Wraps one bound method of an object: counts its calls, their
-    synchronized wall seconds and the kernel launches made inside them.
-    With ``threads`` (a live :class:`ThreadLaunches`) the launches are
-    those of the calling thread only; the tallies update under a lock."""
+    synchronized wall seconds and the kernel launches the calling thread
+    made inside them (``threads``, a live :class:`ThreadLaunches`); the
+    tallies update under a lock."""
 
-    def __init__(self, obj, attr: str, kernel_fns: dict, threads=None):
-        self.fn, self.kernel_fns = getattr(obj, attr), kernel_fns
-        self.threads = threads
+    def __init__(self, obj, attr: str, threads):
+        self.fn, self.threads = getattr(obj, attr), threads
         self._lock = threading.Lock()
         self.calls, self.wall_s = 0, 0.0
         self.calls_launching = 0
-        self.launches = {n: 0 for n in kernel_fns}
+        self.launches = {n: 0 for n in threads.SYMBOLS}
         setattr(obj, attr, self)
 
-    def _counts(self) -> dict:
-        if self.threads is not None:
-            return self.threads.mine()
-        return {n: fn.launches for n, fn in self.kernel_fns.items()}
-
     def __call__(self, *a, **k):
-        before = self._counts()
+        before = self.threads.mine()
         _sync()
         t0 = time.perf_counter()
         out = self.fn(*a, **k)
         _sync()
         wall = time.perf_counter() - t0
-        after = self._counts()
-        made = {n: after[n] - before[n] for n in self.kernel_fns}
+        after = self.threads.mine()
+        made = {n: after[n] - before[n] for n in self.launches}
         with self._lock:
             self.wall_s += wall
             self.calls += 1
@@ -635,7 +629,7 @@ class CallTimer:
         return out
 
 
-def run_fleet_day(sharded, ov, tp, t0: float, kernel_fns: dict,
+def run_fleet_day(sharded, ov, tp, t0: float, kernel_fns: dict, threads,
                   **backends) -> tuple:
     """One fleet day through the port's entry points, as fleet_day runs
     it: ``submit_many`` (one fleet-level ``plan_batch``), the shock, then
@@ -647,11 +641,11 @@ def run_fleet_day(sharded, ov, tp, t0: float, kernel_fns: dict,
         migration_threshold=250.0, replan_every_s=3600.0,
         migrate_check_every_s=900.0, obs=True, device=DEVICE, **backends)
     jobs = fleet_day_jobs(tp, t0)
-    admit = CallTimer(fleet.planner, "plan_batch", kernel_fns)
-    sweeps = [CallTimer(ctl.queue, "replan_pending", kernel_fns)
+    admit = CallTimer(fleet.planner, "plan_batch", threads)
+    sweeps = [CallTimer(ctl.queue, "replan_pending", threads)
               for ctl in fleet.controllers]
     # inside the sweeps: re-scoring each queued job's old cell
-    rescores = [CallTimer(ctl.planner, "rescore_batch", kernel_fns)
+    rescores = [CallTimer(ctl.planner, "rescore_batch", threads)
                 for ctl in fleet.controllers]
     _sync()
     w0 = time.perf_counter()
@@ -769,11 +763,12 @@ def compare_fleet_days(fleet, report, oracle_fleet, oracle,
     return out
 
 
-def fleet_day(kernel_fns: dict, split=None) -> tuple:
+def fleet_day(kernel_fns: dict, threads, split=None) -> tuple:
     """The fleet day on the default fused backend with the planner
     kernels' launch counts reset just before it, then the same day on the
-    numpy oracle; every gate raises. Returns the fleet_main_path line and
-    the fused day's report.
+    numpy oracle; every gate raises (the shards' re-plan sweeps must
+    launch both kernels). ``threads`` is a live :class:`ThreadLaunches`.
+    Returns the fleet_main_path line and the fused day's report.
     With ``split`` (a live :class:`SplitTimer`) the line also carries the
     fused day's kernel ms by CUDA events around each launch, its host
     table builds, and the device's busy share of the day's wall time."""
@@ -786,7 +781,8 @@ def fleet_day(kernel_fns: dict, split=None) -> tuple:
         split.reset()
     for fn in kernel_fns.values():
         fn.launches = 0
-    fleet, report, stats = run_fleet_day(sharded, ov, tp, t0, kernel_fns)
+    fleet, report, stats = run_fleet_day(sharded, ov, tp, t0, kernel_fns,
+                                         threads)
     day_launches = {n: fn.launches for n, fn in kernel_fns.items()}
     line = fleet_summary(fleet, report, stats)
     line["launches"] = day_launches
@@ -799,8 +795,12 @@ def fleet_day(kernel_fns: dict, split=None) -> tuple:
     if not all(day_launches[n] > 0 for n in kernel_fns):
         raise RuntimeError(f"fleet day launched the planner kernels "
                            f"{day_launches} times")
+    if not all(stats["replan_launches"][n] > 0 for n in kernel_fns):
+        raise RuntimeError(f"fleet day: the re-plan sweeps launched the "
+                           f"planner kernels {stats['replan_launches']} "
+                           f"times")
     ofleet, oreport, ostats = run_fleet_day(
-        sharded, ov, tp, t0, kernel_fns, batch_backend="numpy",
+        sharded, ov, tp, t0, kernel_fns, threads, batch_backend="numpy",
         shard_backend="numpy")
     oracle = fleet_summary(ofleet, oreport, ostats)
     line["numpy_day"] = {k: oracle[k] for k in (
@@ -863,9 +863,12 @@ def same_report(got, want, phase: str) -> None:
         raise RuntimeError(f"{phase}: the merge differs in {diff}")
 
 
-def fleet_workers(day_report) -> dict:
+def fleet_workers(day_line: dict, day_report, kernel_fns: dict) -> dict:
     """Phase 6b: the fleet day on spawn workers through the fused kernels,
-    kills, checkpoint and restore; returns the fleet_workers line."""
+    kills, checkpoint and restore; returns the fleet_workers line. The
+    coordinator's admission must launch the kernels as often as phase 6's
+    did (``day_line``); the workers' launches show in the merged count of
+    fused plans."""
     from repro_torch.core.carbon.intensity import PAPER_WINDOW_T0 as t0
     from repro_torch.core.controlplane import parallel, persistence, sharded
     from repro_torch.core.scheduler import overlay as ov
@@ -886,7 +889,11 @@ def fleet_workers(day_report) -> dict:
     try:
         # the first shard command starts the workers: admission, then four
         # spawned interpreters thawing the field and opening CUDA contexts
+        for fn in kernel_fns.values():
+            fn.launches = 0
         fleet.submit_many(fleet_day_jobs(tp, t0))
+        line["admission_launches"] = {n: fn.launches
+                                      for n, fn in kernel_fns.items()}
         fleet.inject_shock(t0 + 11 * 3600.0, 6.0, duration_s=6 * 3600.0,
                            zones=FLEET_SHOCK_ZONES)
         for k in range(1, WORKER_CUT_H + 1):
@@ -914,6 +921,8 @@ def fleet_workers(day_report) -> dict:
         degradations += report.degradations
         line["coordinator_wall_s"] = time.perf_counter() - w0
         line["worker_shard_wall_s"] = [r.wall_s for r in fleet.shard_reports]
+        line["coordinator_launches"] = {n: fn.launches
+                                        for n, fn in kernel_fns.items()}
     finally:
         fleet.close()
         FLEET_CKPT.unlink(missing_ok=True)
@@ -928,6 +937,10 @@ def fleet_workers(day_report) -> dict:
         raise RuntimeError(f"fleet workers: {kills} kills, "
                            f"{len(degradations)} respawns")
     same_report(report, day_report, "fleet workers vs the in-process day")
+    if line["admission_launches"] != day_line["admission_launches"]:
+        raise RuntimeError(f"fleet workers: admission launched "
+                           f"{line['admission_launches']}, phase 6's "
+                           f"{day_line['admission_launches']}")
     if line["fused_plan_batches"] != fused_plan_batches(day_report):
         raise RuntimeError(f"fleet workers: {line['fused_plan_batches']} "
                            f"fused plan_batch calls, the in-process day "
@@ -1010,9 +1023,11 @@ def fleet_durable(kernel_fns: dict) -> dict:
 
 
 def stream_run(sharded, streaming, sc, t0: float, pipeline: str,
-               kernel_fns: dict, threads) -> tuple:
-    """examples/fleet_stream.py's ``_run`` on the fused backend, the
-    gateway's batch planner wrapped in a per-thread launch count."""
+               threads=None) -> tuple:
+    """examples/fleet_stream.py's ``_run`` on the fused backend. With
+    ``threads`` (a live :class:`ThreadLaunches`) the gateway's batch
+    planner is wrapped in a :class:`CallTimer`, which synchronizes the
+    card around each call; without, nothing is wrapped."""
     fleet = sharded.ShardedFleet(list(sc.ftns), n_shards=FLEET_N_SHARDS,
                                  migration_threshold=250.0, device=DEVICE)
     for shock in sc.shocks:
@@ -1022,68 +1037,96 @@ def stream_run(sharded, streaming, sc, t0: float, pipeline: str,
         fleet, window_s=STREAM_WINDOW_S, max_batch=STREAM_MAX_BATCH,
         max_inflight=STREAM_MAX_INFLIGHT, backfill=True, pipeline=pipeline,
         device=DEVICE)
-    batch = CallTimer(gw._batch_planner, "plan_batch", kernel_fns, threads)
+    batch = None if threads is None \
+        else CallTimer(gw._batch_planner, "plan_batch", threads)
     w0 = time.perf_counter()
     report = gw.run(sc.jobs(STREAM_SEED, t0))
     _sync()
     return report, gw.stats(), batch, time.perf_counter() - w0
 
 
-def fleet_stream(kernel_fns: dict, threads, split) -> dict:
+# the order of 6d's uninstrumented runs (ABBA, so that warm-up and drift
+# fall on both modes alike)
+STREAM_PLAIN_ORDER = ("off", "on", "on", "off")
+
+
+def fleet_stream(grid_cuda, threads) -> dict:
     """Phase 6d: the bursty_day stream through a StreamingGateway on the
-    fused kernels, pipeline off then on: the example's acceptance, two
-    bit-identical merges, and the gateway's batch planner launching both
-    kernels (on its planner thread when pipelined). ``threads`` (a live
-    :class:`ThreadLaunches`) counts launches by thread, ``split`` (a live
-    :class:`SplitTimer`) gives the kernels' device time with pipeline
-    off."""
+    fused kernels. First the uninstrumented runs of STREAM_PLAIN_ORDER,
+    which alone give each mode's wall and jobs/s; then pipeline off and on
+    once each with the batch planner wrapped (``threads``, a live
+    :class:`ThreadLaunches`, counts launches by thread) and CUDA events
+    around each launch (a :class:`SplitTimer` on ``grid_cuda``, the
+    kernels' device time with pipeline off). Gates: the example's
+    acceptance, every merge bit-identical to the first, the gateway's
+    batch planner launching both kernels (on its planner thread when
+    pipelined)."""
     from repro_torch.core.carbon.intensity import PAPER_WINDOW_T0 as t0
     from repro_torch.core.controlplane import sharded, streaming
     from repro_torch.core.workloads import get_scenario
 
     sc = get_scenario("bursty_day")
-    line, reports = {}, {}
-    for mode in ("off", "on"):
-        split.reset()
-        report, st, batch, wall = stream_run(sharded, streaming, sc, t0,
-                                             mode, kernel_fns, threads)
-        # with the planner thread launching too, two threads' event pairs
-        # on the one stream bracket each other's kernels, so events time
-        # the kernels only when one thread launches
-        kms = sum(split.kernel_ms().values()) if mode == "off" else None
-        reports[mode] = report
-        audit = abs(report.ledger_total_g - report.total_actual_g) \
-            / max(report.total_actual_g, 1e-12)
-        line[mode] = {
+    line, reports = {"plain": {"on": [], "off": []}}, []
+    for mode in STREAM_PLAIN_ORDER:
+        report, st, _, wall = stream_run(sharded, streaming, sc, t0, mode)
+        reports.append(report)
+        line["plain"][mode].append({
             "wall_s": wall, "jobs_per_s": report.n_jobs / wall,
-            "jobs": report.n_jobs, "batches": st.n_batches,
-            "mean_batch": st.mean_batch, "max_batch": st.max_batch,
-            "admission_p50_s": st.admission_p50_s,
-            "admission_p95_s": st.admission_p95_s,
-            "deferred": st.n_deferred, "promotions": st.n_promotions,
-            "backfill_promotions": st.n_backfill_promotions,
-            "sla_misses": report.sla_misses, "ledger_audit_rel_err": audit,
             "pipelined_batches": st.n_pipelined_batches,
             "plan_wall_s": st.plan_wall_s, "stall_wall_s": st.stall_wall_s,
-            "overlap_fraction": st.overlap_fraction,
-            "batch_planner_calls": batch.calls,
-            "batch_planner_wall_s": batch.wall_s,
-            "batch_planner_launches": batch.launches,
-            "kernel_ms": kms,
-            "device_busy_share": None if kms is None else kms / 1e3 / wall}
-        # examples/fleet_stream.py's acceptance (:72-96)
-        if not (report.n_completed == report.n_jobs == st.n_jobs
-                and st.n_deferred > 0 and st.n_backfill_promotions > 0
-                and report.sla_misses == 0 and audit < 1e-9):
-            raise RuntimeError(f"fleet stream ({mode}): {line[mode]}")
-        if not all(batch.launches.values()):
-            raise RuntimeError(f"fleet stream ({mode}): the gateway's batch "
-                               f"planner launched {batch.launches}")
+            "overlap_fraction": st.overlap_fraction})
+        if (mode == "on") != (st.n_pipelined_batches > 0):
+            raise RuntimeError(f"fleet stream ({mode}, plain): "
+                               f"{st.n_pipelined_batches} pipelined batches")
+    with SplitTimer(grid_cuda) as split:
+        for mode in ("off", "on"):
+            split.reset()
+            report, st, batch, wall = stream_run(sharded, streaming, sc, t0,
+                                                 mode, threads)
+            line[mode] = stream_line(report, st, batch, wall, mode, split)
+            reports.append(report)
     if line["on"]["pipelined_batches"] <= 0:
         raise RuntimeError("fleet stream: no batch was planned on the "
                            "planner thread")
-    same_report(reports["on"], reports["off"], "fleet stream on vs off")
+    for k, report in enumerate(reports[1:], 1):
+        same_report(report, reports[0], f"fleet stream run {k} vs run 0")
     return line
+
+
+def stream_line(report, st, batch, wall: float, mode: str, split) -> dict:
+    """One instrumented 6d run's line, and its gates."""
+    # with the planner thread launching too, two threads' event pairs on
+    # the one stream bracket each other's kernels, so events time the
+    # kernels only when one thread launches
+    kms = sum(split.kernel_ms().values()) if mode == "off" else None
+    audit = abs(report.ledger_total_g - report.total_actual_g) \
+        / max(report.total_actual_g, 1e-12)
+    out = {
+        "wall_s": wall, "jobs_per_s": report.n_jobs / wall,
+        "jobs": report.n_jobs, "batches": st.n_batches,
+        "mean_batch": st.mean_batch, "max_batch": st.max_batch,
+        "admission_p50_s": st.admission_p50_s,
+        "admission_p95_s": st.admission_p95_s,
+        "deferred": st.n_deferred, "promotions": st.n_promotions,
+        "backfill_promotions": st.n_backfill_promotions,
+        "sla_misses": report.sla_misses, "ledger_audit_rel_err": audit,
+        "pipelined_batches": st.n_pipelined_batches,
+        "plan_wall_s": st.plan_wall_s, "stall_wall_s": st.stall_wall_s,
+        "overlap_fraction": st.overlap_fraction,
+        "batch_planner_calls": batch.calls,
+        "batch_planner_wall_s": batch.wall_s,
+        "batch_planner_launches": batch.launches,
+        "kernel_ms": kms,
+        "device_busy_share": None if kms is None else kms / 1e3 / wall}
+    # examples/fleet_stream.py's acceptance (:72-96)
+    if not (report.n_completed == report.n_jobs == st.n_jobs
+            and st.n_deferred > 0 and st.n_backfill_promotions > 0
+            and report.sla_misses == 0 and audit < 1e-9):
+        raise RuntimeError(f"fleet stream ({mode}): {out}")
+    if not all(batch.launches.values()):
+        raise RuntimeError(f"fleet stream ({mode}): the gateway's batch "
+                           f"planner launched {batch.launches}")
+    return out
 
 
 def lattice_day(kernel_fns: dict, split=None) -> dict:
@@ -1938,35 +1981,37 @@ def main() -> int:
 
     clock.mark("5 oracle")
 
-    # 6. the fleet day: ShardedFleet -> FleetController x 4 ->
-    # CarbonAwareQueue -> plan_batch -> the planner kernels, then the same
-    # day on the numpy oracle
-    with SplitTimer(grid_cuda) as split:
-        line, day_report = fleet_day(kernel_fns, split)
-        emit({"fleet_main_path": line})
-    clock.mark("6 fleet day")
+    # 6-6e count the launches inside timed calls by launching thread
+    with ThreadLaunches(grid_cuda._library()) as threads:
+        # 6. the fleet day: ShardedFleet -> FleetController x 4 ->
+        # CarbonAwareQueue -> plan_batch -> the planner kernels, then the
+        # same day on the numpy oracle
+        with SplitTimer(grid_cuda) as split:
+            line, day_report = fleet_day(kernel_fns, threads, split)
+            emit({"fleet_main_path": line})
+        clock.mark("6 fleet day")
 
-    # 6b. the same day on four spawn workers (a CUDA context each) through
-    # the fused kernels, two worker kills, a checkpoint at hour 12 and a
-    # restore onto fresh workers: phase 6's report bit for bit
-    emit({"fleet_workers": fleet_workers(day_report)})
-    clock.mark("6b fleet workers")
+        # 6b. the same day on four spawn workers (a CUDA context each)
+        # through the fused kernels, two worker kills, a checkpoint at
+        # hour 12 and a restore onto fresh workers: phase 6's report bit
+        # for bit
+        emit({"fleet_workers": fleet_workers(line, day_report, kernel_fns)})
+        clock.mark("6b fleet workers")
 
-    # 6c. examples/fleet_durable.py on fork workers after CUDA is live
-    emit({"fleet_durable": fleet_durable(kernel_fns)})
-    clock.mark("6c fleet durable")
+        # 6c. examples/fleet_durable.py on fork workers after CUDA is live
+        emit({"fleet_durable": fleet_durable(kernel_fns)})
+        clock.mark("6c fleet durable")
 
-    # 6d. the bursty_day stream through the StreamingGateway, pipeline off
-    # and on, the gateway's planner thread launching the kernels
-    with ThreadLaunches(grid_cuda._library()) as threads, \
-            SplitTimer(grid_cuda) as split:
-        emit({"fleet_stream": fleet_stream(kernel_fns, threads, split)})
-    clock.mark("6d fleet stream")
+        # 6d. the bursty_day stream through the StreamingGateway, pipeline
+        # off and on, the gateway's planner thread launching the kernels
+        emit({"fleet_stream": fleet_stream(grid_cuda, threads)})
+        clock.mark("6d fleet stream")
 
-    # 6e. the lattice day: edge_lattice_day on 200 zones, fused admission
-    with SplitTimer(grid_cuda) as split:
-        emit({"lattice_day": lattice_day(kernel_fns, split)})
-    clock.mark("6e lattice day")
+        # 6e. the lattice day: edge_lattice_day on 200 zones, fused
+        # admission
+        with SplitTimer(grid_cuda) as split:
+            emit({"lattice_day": lattice_day(kernel_fns, split)})
+        clock.mark("6e lattice day")
 
     # 7. the flash kernel against its plain version at the prefill's shapes
     cfg = get_config(ARCH)

@@ -63,12 +63,14 @@ Durability contracts (the supervision layer):
   the full remote traceback. All are ``RuntimeError`` subclasses.
 * **the degradation ladder** — recovery respawns the worker from the
   last per-shard checkpoint and replays the journal delta, at most
-  ``SupervisionPolicy.max_respawns`` times (worker-reported errors first
-  downgrade the shard's batch backend to the numpy oracle: a kernel
-  fault must not take the shard down with it). A shard that exhausts the
-  ladder falls back to an *in-process* ``_ShardServer`` — ``parallel``
-  is effectively ``"off"`` for that shard, but the run completes. Every
-  rung is surfaced on ``FleetReport.degradations``.
+  ``SupervisionPolicy.max_respawns`` times (on a CPU shard,
+  worker-reported errors first downgrade the shard's batch backend to the
+  numpy oracle; a shard on the card keeps its backend, so a failing
+  kernel is never planned around). A shard that exhausts the ladder falls
+  back to an *in-process* ``_ShardServer`` on its spec as it stands —
+  ``parallel`` is effectively ``"off"`` for that shard, but the run
+  completes; if that fails too, the first failure raises. Every rung is
+  surfaced on ``FleetReport.degradations``.
 * **faults are injectable** — a seeded :class:`FaultPlan` drives
   ``cluster/faults.py``-style worker-kill / pipe-blip / hang / backend
   faults through the same machinery at barrier quanta.
@@ -685,7 +687,8 @@ class ShardSupervisor:
 
         HEALTHY --(send/recv failure)--> BROKEN
         BROKEN  --(respawn + restore-from-checkpoint + journal replay,
-                   worker errors downgrade batch backend -> numpy first)
+                   worker errors downgrade batch backend -> numpy first,
+                   except on a cuda shard, which keeps its backend)
                 --> HEALTHY
         BROKEN  --(max_respawns exhausted)--> LOCAL
                    (the shard runs in-process from here on; faults no
@@ -733,11 +736,13 @@ class ShardSupervisor:
             attempts = attempt
             spec = runner._specs[idx]
             if (type(err) is WorkerFailure
-                    and spec.batch_backend != FORK_SAFE_BACKEND):
+                    and spec.batch_backend != FORK_SAFE_BACKEND
+                    and not spec.device.startswith("cuda")):
                 # the worker *reported* an exception (it did not die): a
-                # batch-backend (kernel) fault is the expected cause —
-                # retry on the pinned numpy oracle before blaming the
-                # process
+                # batch-backend fault is the expected cause — retry on the
+                # pinned numpy oracle before blaming the process. A shard
+                # on the card keeps its backend: planning it on numpy
+                # would hide a failing kernel
                 old = spec.batch_backend
                 spec = dataclasses.replace(
                     spec, batch_backend=FORK_SAFE_BACKEND)

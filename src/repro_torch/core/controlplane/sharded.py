@@ -161,7 +161,9 @@ class ShardedFleet:
     ``"fork"`` / ``"spawn"`` / ``"auto"`` run one worker process per
     shard over a frozen snapshot of ``field``, started lazily at the
     first shard command (so the snapshot captures the admission-warmed
-    caches). A spawn worker opens its own CUDA context. A parallel fleet
+    caches). ``"auto"`` picks spawn when the shards plan on ``cuda`` with
+    a backend other than numpy, else the platform's cheapest start. A
+    spawn worker opens its own CUDA context. A parallel fleet
     should be :meth:`close`\\ d (or used as a context manager) to reap
     its workers.
     """
@@ -186,6 +188,10 @@ class ShardedFleet:
                              f"'auto', got {parallel!r}")
         device = resolve_device(device)
         self.field = field or default_field()
+        if parallel == "auto" and device.type == "cuda" and (
+                shard_backend or batch_backend) != FORK_SAFE_BACKEND:
+            # shards that plan on the card need a fresh interpreter
+            parallel = "spawn"
         self.parallel = parallel if parallel == "off" \
             else resolve_mode(parallel)
         if shard_backend is None:

@@ -103,6 +103,19 @@ def warm_up_torch() -> None:
     torch.cos(w.float())
 
 
+def fresh_default_fields() -> None:
+    """Drop both packages' process-wide default carbon field, so the next
+    ``default_field()`` on either side starts cold. A warm field answers
+    from the hop-CI prefix-sum grids it cached for earlier windows, and
+    those can differ from a cold field's in the last bit; a comparison of
+    port and reference must start both from the same state, whatever ran
+    before it in the process."""
+    from repro.core.carbon import field as r_field
+    from repro_torch.core.carbon import field as t_field
+    for mod in (r_field, t_field):
+        mod._DEFAULT, mod._DEFAULT_PID = None, None
+
+
 def make_jobs(planner_mod, specs) -> list:
     return [planner_mod.TransferJob(u, size, reps, dst,
                                     planner_mod.SLA(deadline_s=dl,

@@ -18,6 +18,7 @@ import pickle
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -42,6 +43,11 @@ WORKER_TIMEOUT_S = 180
 @pytest.fixture(scope="module", autouse=True)
 def _warm():
     ref.warm_up_torch()
+
+
+@pytest.fixture(autouse=True)
+def _cold_fields():
+    ref.fresh_default_fields()
 
 
 @pytest.fixture
@@ -146,6 +152,53 @@ def test_backend_fault_downgrades_a_kernel_shard_to_numpy(bounded):
     assert got.n_completed == got.n_jobs == 18
 
 
+class _Respawned:
+    def __init__(self, fail):
+        self.fail = fail
+
+    def call(self, cmd, args):
+        if self.fail:
+            raise parallel.WorkerDied("respawn failed")
+
+    def hard_close(self):
+        pass
+
+
+def _cuda_supervisor(respawn_fails):
+    spec = parallel.ShardSpec(
+        ftns=tuple(ref.make_ftns(overlay, ref.FLEET_FTNS)), controller_kw=(),
+        batch_backend="fused", frozen=None, device="cuda")
+    runner = SimpleNamespace(
+        _specs=[spec], _handles=[_Respawned(False)],
+        _spawn=lambda idx: _Respawned(respawn_fails),
+        proxies=[SimpleNamespace(_on_reply=lambda state, take: None)])
+    sup = parallel.ShardSupervisor(runner, parallel.SupervisionPolicy(
+        max_respawns=2, backoff_s=0.0))
+    sup.journals[0].append(("pump", None))
+    return sup, runner, spec
+
+
+def test_a_kernel_shard_on_the_card_is_never_downgraded(monkeypatch):
+    """A worker on the card that reports an error (a failing kernel)
+    respawns on its own backend; once respawns run out, the shard runs
+    in-process on the same fused/cuda spec. Nothing plans it on numpy."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    sup, runner, spec = _cuda_supervisor(respawn_fails=False)
+    sup.recover(0, parallel.WorkerFailure("kernel launch failed"))
+    assert runner._specs[0] == spec
+    assert [d for d in sup.degradations if "respawned" not in d] == []
+    sup, runner, spec = _cuda_supervisor(respawn_fails=True)
+    monkeypatch.setattr(parallel._ShardServer, "apply",
+                        lambda self, cmd, args: (None, True))
+    sup.recover(0, parallel.WorkerFailure("kernel launch failed"))
+    assert runner._specs[0] == spec
+    srv = sup.local[0]
+    assert (srv.ctl.planner.batch_backend, str(srv.ctl.planner.device)) == \
+        ("fused", "cuda")
+    assert not any("batch backend" in d for d in sup.degradations)
+    assert "parallel -> off" in sup.degradations[-1]
+
+
 def test_seeded_fault_plans_are_the_reference_s():
     for kw in (dict(seed=11, horizon=4, kills=2, backend_faults=1),
                dict(seed=7, horizon=6, kills=2, backend_faults=1, hangs=1,
@@ -203,6 +256,17 @@ def test_fork_refuses_shard_planning_on_the_card(monkeypatch):
         sharded.ShardedFleet(ref.make_ftns(overlay, ref.FLEET_FTNS),
                              parallel="fork", shard_backend="torch",
                              batch_backend="numpy", device="cuda")
+    # "auto" on the card starts fresh interpreters for shards that plan
+    # there, and forks only numpy shards
+    for kw, want in ((dict(), ("spawn", "fused", "cuda")),
+                     (dict(shard_backend="torch", batch_backend="numpy"),
+                      ("spawn", "torch", "cuda")),
+                     (dict(batch_backend="numpy"), ("fork", "numpy", "cpu"))):
+        with sharded.ShardedFleet(ref.make_ftns(overlay, ref.FLEET_FTNS),
+                                  parallel="auto", device="cuda",
+                                  **kw) as fleet:
+            assert (fleet.parallel, fleet.shard_backend,
+                    fleet._shard_device) == want
 
 
 def test_fork_workers_plan_on_the_cpu_and_spawn_workers_where_told(

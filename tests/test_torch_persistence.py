@@ -42,6 +42,11 @@ def _warm():
     ref.warm_up_torch()
 
 
+@pytest.fixture(autouse=True)
+def _cold_fields():
+    ref.fresh_default_fields()
+
+
 @pytest.fixture
 def bounded():
     with ref.deadline(WORKER_TIMEOUT_S):

@@ -41,6 +41,11 @@ def _warm():
     ref.warm_up_torch()
 
 
+@pytest.fixture(autouse=True)
+def _cold_fields():
+    ref.fresh_default_fields()
+
+
 def _jobs(mod, n=36, rate_per_h=6.0, seed=5):
     """tests/test_pipeline.py's stream: Poisson arrivals over 8 h."""
     w = mod.Workload("eq", mod.PoissonArrivals(rate_per_h=rate_per_h),
