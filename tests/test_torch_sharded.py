@@ -5,9 +5,11 @@ in-process. With the numpy batch and shard backends the merged
 ``FleetReport`` is bit-identical (trace and metrics without their wall
 series included); on ``fused`` (the kernels' plain versions on the CPU)
 and ``torch`` every job gets the numpy run's cell and outcome row,
-emissions within 1e-4. Partitioning is the reference's shard for shard;
-only ``parallel="off"`` is ported.
+emissions within 1e-4. Partitioning is the reference's shard for shard.
+Worker processes are held to the reference in ``test_torch_parallel.py``.
 """
+from types import SimpleNamespace
+
 import pytest
 
 import _torch_ref as ref
@@ -185,10 +187,14 @@ def test_chip_smoke_fleet_gates_pass_the_port_and_catch_a_changed_job(
     monkeypatch.setattr(cs, "DEVICE", "cpu")
     monkeypatch.setattr(cs, "FLEET_N_JOBS", 40)
     kfns = {"rate_prefix": grid_cuda.rate_prefix, "sweep": grid_cuda.sweep}
+    # stands in for ThreadLaunches, which wraps the kernel library: on the
+    # CPU no kernel launches, so the wrappers' counts are the one thread's
+    threads = SimpleNamespace(
+        SYMBOLS=kfns, mine=lambda: {n: fn.launches for n, fn in kfns.items()})
     fleet, rep, stats = cs.run_fleet_day(sharded, overlay, planner, ref.T0,
-                                         kfns)
+                                         kfns, threads)
     ofleet, orep, _ = cs.run_fleet_day(sharded, overlay, planner, ref.T0,
-                                       kfns, batch_backend="numpy",
+                                       kfns, threads, batch_backend="numpy",
                                        shard_backend="numpy")
     assert stats["admission_cells"] > 40 and stats["replan_sweeps"] > 0
     assert rep.n_completed == 40
