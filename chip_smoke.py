@@ -43,7 +43,26 @@ and drives the port's paths:
   against its plain version at the training shapes, one train step on the
   kernel path against the same step on the plain chunked path, then
   ``Trainer`` for 6 steps with a checkpoint every 3 and a bit-exact
-  restore, and a ``torch.profiler`` split of one step.
+  restore, and a ``torch.profiler`` split of one step;
+* serving mamba2-370m at full size: the SSD kernel against its plain
+  version at the serving prefill's shapes (4 x 2048 tokens), then
+  ``Server`` answering 8 requests of 2048-token prompts with 32 new tokens
+  each (the SSD kernel in prefill, its final state the decode state,
+  O(1) recurrent decode), the cached logits checked against a plain full
+  forward;
+* seamless-m4t-medium at full size (12 encoder and 12 decoder layers,
+  d_model 1024, 16 heads of 64, vocab 256206): the flash kernel against
+  its plain version at the encoder's non-causal shapes (512 frames and a
+  ragged 500) and the decoder's causal one, prefill with 512 audio frames
+  and 31 decode steps through the model API (cached logits against a
+  plain full forward), and one train step of 4 x 2048 tokens on the
+  kernel path against the plain path;
+* internvl2-1b at full size (24 layers, d_model 896, 14 query heads over
+  2 kv heads of 64, vocab 151655): the flash kernel at GQA 14:2 against
+  its plain version, ``Server`` answering 8 text-only requests, prefill
+  with 256 patch embeddings and 1792 text tokens and 31 decode steps
+  (cached logits against a plain full forward), and one train step, as
+  seamless's.
 
 Every phase that fails raises, so the exit code is non-zero; without a
 CUDA device the script exits 2 and prints no result. Each phase prints its
@@ -111,9 +130,27 @@ TRAIN_CKPT_DIR = REPO / "build" / "chip_smoke_train_ckpt"
 # gradient's global norm: ~1e-4 and ~1e-3 relative at most.
 STEP_LOSS_TOL_REL = 1e-4
 STEP_GNORM_TOL_REL = 1e-3
-# flash check at the prefill's shapes: (name, T = S, window)
-FLASH_CASES = (("global", PROMPT_LEN, None), ("local", PROMPT_LEN, 1024),
-               ("ragged", 2000, None))
+# flash check at the prefill's shapes: (name, T = S, window, causal)
+FLASH_CASES = (("global", PROMPT_LEN, None, True),
+               ("local", PROMPT_LEN, 1024, True),
+               ("ragged", 2000, None, True))
+# 11-13: the SSM, encoder-decoder and vision-language families at full
+# width and depth, random weights from SEED, PROMPT_LEN positions a
+# sequence in batches of SERVE_BATCH (and MAX_NEW new tokens)
+SSM_ARCH, ENCDEC_ARCH, VLM_ARCH = ("mamba2-370m", "seamless-m4t-medium",
+                                   "internvl2-1b")
+N_FRAMES = PROMPT_LEN // 4     # audio frames: one per 4 target positions
+# mamba2's plain full forward runs its scan at chunk 32: prompt and new
+# tokens, 2080 = 65 x 32, are not whole chunks of 256. The chunked scan
+# computes the same function at any chunk (only its sum order differs;
+# tests/test_torch_ssm_serving.py holds three chunks to 1e-5).
+SSM_FULL_CHUNK = 32
+# seamless's encoder (T = S = 512 frames, and a ragged 500) and decoder,
+# non-causal and causal; internvl2's prefill (GQA 14:2); head_dim 64
+ENCDEC_FLASH_CASES = (("seamless_encoder", N_FRAMES, None, False),
+                      ("seamless_encoder_ragged", N_FRAMES - 12, None, False),
+                      ("seamless_decoder", PROMPT_LEN, None, True))
+VLM_FLASH_CASES = (("internvl2_gqa14to2", PROMPT_LEN, None, True),)
 
 # The flash kernel against its plain version, both rounded to bf16. Its f32
 # result differs from the plain one only by sum order and by P being
@@ -1231,11 +1268,12 @@ def ssd_ok(err: dict) -> bool:
 
 
 def flash_bound_ms(b: int, t: int, hq: int, hkv: int, d: int,
-                   window) -> tuple:
+                   window, causal: bool = True) -> tuple:
     """Least time for one flash call on these inputs: 4*d tensor-core FLOP
     (QK^T and PV) per unmasked (q, k) pair at the bf16 dense peak, against
     q, k and v read once and o written once."""
-    keys = torch.arange(1, t + 1, dtype=torch.float64)
+    keys = (torch.arange(1, t + 1, dtype=torch.float64) if causal
+            else torch.full((t,), float(t), dtype=torch.float64))
     if window is not None:
         keys = keys.clamp(max=window)
     ops_s = 4 * d * float(keys.sum()) * b * hq / BF16_TC_FLOPS
@@ -1244,26 +1282,27 @@ def flash_bound_ms(b: int, t: int, hq: int, hkv: int, d: int,
         "operations" if ops_s >= bytes_s else "bytes")
 
 
-def check_flash(fa, cfg, usage=None) -> list:
-    """The flash kernel against its plain version at gemma3-12b's prefill
-    shapes (4 sequences, 16 query heads over 8 kv heads, head_dim 240,
-    bf16); ``scaled_dot_product_attention`` on the same inputs and mask is
-    timed as the library yardstick only. ``usage`` (from
-    :func:`ptxas_usage`) adds the kernel's registers and shared memory."""
+def check_flash(fa, cfg, usage=None, cases=FLASH_CASES) -> list:
+    """The flash kernel against its plain version at a model's prefill
+    shapes (4 sequences of ``cfg``'s heads and head_dim, bf16; gemma3-12b:
+    16 query heads over 8 kv heads of 240); ``scaled_dot_product_attention``
+    on the same inputs and mask is timed as the library yardstick only.
+    ``usage`` (from :func:`ptxas_usage`) adds the kernel's registers and
+    shared memory."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cases = []
-    for name, t, window in FLASH_CASES:
+    out = []
+    for name, t, window, causal in cases:
         q, k, v = (torch.randn((SERVE_BATCH, t, h, d), generator=gen,
                                device=DEVICE).to(torch.bfloat16)
                    for h in (hq, hkv, hkv))
 
         def kernel():
-            return fa.flash_attention(q, k, v, causal=True, window=window)
+            return fa.flash_attention(q, k, v, causal=causal, window=window)
 
         def plain():
-            return fa.flash_attention_plain(q, k, v, causal=True,
+            return fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
 
         got, want = kernel(), plain()
@@ -1284,23 +1323,25 @@ def check_flash(fa, cfg, usage=None) -> list:
         def library():
             if window is None:
                 return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
+                                                      is_causal=causal)
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   attn_mask=mask)
 
-        bound, by = flash_bound_ms(SERVE_BATCH, t, hq, hkv, d, window)
+        bound, by = flash_bound_ms(SERVE_BATCH, t, hq, hkv, d, window,
+                                   causal)
         case = {"case": name, "q": list(q.shape), "kv": list(k.shape),
-                "window": window, **err, "tol_rel_rms": FLASH_REL_RMS_TOL,
+                "window": window, "causal": causal, **err,
+                "tol_rel_rms": FLASH_REL_RMS_TOL,
                 **flash_resources(fa, d, usage),
                 "ms": median_ms(kernel), "plain_ms": median_ms(plain),
                 "library_ms": median_ms(library), "bound_ms": bound,
                 "bound_by": by}
         case["bound_share"] = bound / case["ms"]
         emit({"flash_check": case})
-        cases.append(case)
+        out.append(case)
         del q, k, v, qt, kt, vt, mask
     torch.cuda.empty_cache()
-    return cases
+    return out
 
 
 class ServeProbe:
@@ -1358,10 +1399,15 @@ class ServeProbe:
         return sum(a.elapsed_time(b) for a, b in epoch["flash"])
 
 
-def serve(fa, sl, cfg, run, power_w: float):
+def serve(fa, sl, cfg, run, power_w: float, kernel=None,
+          kernel_name: str = "flash"):
     """The serving main path: ``Server`` answers N_REQUESTS requests in
     static batches on the card; returns the server, the probe and the
-    flash launches counted over the path."""
+    launches of ``kernel`` (a wrapper with a ``launches`` count; the
+    flash kernel's unless given) counted over the path, one per layer
+    and prefill."""
+    from repro_torch.models.params import count_params
+    kernel = kernel or fa.flash_attention
     t0 = time.perf_counter()
     srv = sl.Server(cfg, run, batch=SERVE_BATCH, s_max=S_MAX, chip_count=1,
                     chip_power_w=power_w, device=DEVICE)
@@ -1372,25 +1418,25 @@ def serve(fa, sl, cfg, run, power_w: float):
         "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
         "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
         "vocab": cfg.vocab_size, "window": cfg.sliding_window,
-        "params": n_params, "param_counts": cfg.param_counts()["total"],
+        "params": n_params, "spec_params": count_params(cfg),
         "weights_gb": sum(p.numel() * p.element_size()
                           for p in srv.model.parameters()) / 1e9,
         "init_s": time.perf_counter() - t0, "site": srv.site,
         "chip_power_w": power_w}})
-    if n_params != cfg.param_counts()["total"] \
+    if n_params != count_params(cfg) \
             or len(srv.model.decoder.layers) != cfg.n_layers:
-        raise RuntimeError("the served model is not gemma3-12b at full "
-                           "size")
+        raise RuntimeError(f"the served model is not {cfg.name} at full "
+                           f"size")
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (N_REQUESTS, PROMPT_LEN))
     for i in range(N_REQUESTS):
         srv.submit(sl.Request(rid=i, prompt=torch.as_tensor(prompts[i]),
                               max_new_tokens=MAX_NEW))
     sites = set(srv.cluster.sites)
-    fa.flash_attention.launches = 0
+    kernel.launches = 0
     with ServeProbe(sl, fa) as probe:
         while srv.queue:
-            before = fa.flash_attention.launches
+            before = kernel.launches
             done = srv.step_epoch()
             ep = probe.epochs[-1]
             if len(done) != SERVE_BATCH or any(
@@ -1415,20 +1461,20 @@ def serve(fa, sl, cfg, run, power_w: float):
                   "gen_tokens_per_s": SERVE_BATCH * MAX_NEW / lat,
                   "prompt_tokens_per_s": SERVE_BATCH * PROMPT_LEN / pre,
                   "mg_co2_per_request": done[0].emissions_mg,
-                  "flash_launches": fa.flash_attention.launches - before,
+                  f"{kernel_name}_launches": kernel.launches - before,
                   "flash_ms_in_prefill": flash_ms,
                   "flash_share_of_prefill": flash_ms / 1e3 / pre})
-    launches = fa.flash_attention.launches
+    launches = kernel.launches
     n_prefill = len(probe.epochs)
     lat = sum(c.latency_s for c in srv.completions) / SERVE_BATCH
     emit({"serve_main_path": {
-        "requests": len(srv.completions), "prefills": n_prefill,
-        "flash_launches": launches,
+        "arch": cfg.name, "requests": len(srv.completions),
+        "prefills": n_prefill, f"{kernel_name}_launches": launches,
         "gen_tokens_per_s": len(srv.completions) * MAX_NEW / lat,
         "wall_s": lat}})
     if launches != cfg.n_layers * n_prefill:
-        raise RuntimeError(f"flash launches {launches} != {cfg.n_layers} "
-                           f"layers x {n_prefill} prefills")
+        raise RuntimeError(f"{kernel_name} launches {launches} != "
+                           f"{cfg.n_layers} layers x {n_prefill} prefills")
     return srv, probe, launches
 
 
@@ -1438,22 +1484,33 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_logits(M, srv, probe) -> dict:
-    """First epoch: the cached path's logits (prefill's last position and
-    every decode step) against a plain full forward over prompt and
-    generated tokens (naive attention, no cache), and the flash prefill
-    against the naive one. A control compares each cached step with the
-    full forward's next position: a cache off by one slot would look like
-    it."""
+    """First epoch of a ``Server``: :func:`logit_gate` on its prompts and
+    the logits its loop computed."""
     ep = probe.epochs[0]
-    model = srv.model
-    naive = dataclasses.replace(srv.run, attn_impl="naive")
-    cached = torch.stack(ep["logits"], dim=1)                  # [B, 32, V]
-    fed = torch.stack([lg.argmax(-1) for lg in ep["logits"][:-1]], dim=1)
-    seq = torch.cat([ep["tokens"], fed], dim=1)                # [B, 2079]
-    h = M.forward_hidden(model, naive, seq)
-    full = M.unembed(model, h[:, PROMPT_LEN - 1:]).float()     # [B, 32, V]
+    return logit_gate(M, srv.model, srv.run, ep["tokens"], ep["logits"])
+
+
+def logit_gate(M, model, run, tokens, logits, *, fed=None, full_model=None,
+               label: str = "logit_check", **front) -> dict:
+    """The cached path's logits (prefill's last position and every decode
+    step) against a plain full forward over the prompt and the decoded
+    tokens (naive attention, the chunked scan; no cache), and the kernel
+    path's prefill against the plain one. A control compares each cached
+    step with the full forward's next position: a cache off by one slot
+    would look like it. The decoded tokens are ``fed``, or each step's
+    argmax but the last (greedy, as ``Server``); ``front`` holds the
+    prompt's ``frames`` or ``patches``; ``full_model`` (the same weights)
+    runs the full forward."""
+    naive = dataclasses.replace(run, attn_impl="naive")
+    cached = torch.stack(logits, dim=1)                        # [B, n, V]
+    if fed is None:
+        fed = torch.stack([lg.argmax(-1) for lg in logits[:-1]], dim=1)
+    seq = torch.cat([tokens, fed], dim=1)
+    h = M.forward_hidden(full_model or model, naive, seq, **front)
+    start = h.shape[1] - seq.shape[1] + tokens.shape[1] - 1
+    full = M.unembed(model, h[:, start:start + len(logits)]).float()
     del h
-    naive_prefill, cache = M.prefill(model, naive, ep["tokens"], S_MAX)
+    plain_prefill, cache = M.prefill(model, naive, tokens, S_MAX, **front)
     del cache
     res = {"positions": int(full.shape[1]),
            "finite": bool(torch.isfinite(cached).all()
@@ -1463,17 +1520,16 @@ def check_logits(M, srv, probe) -> dict:
            "cached_vs_full_prefill_pos_rel": rel_err(cached[:, 0],
                                                      full[:, 0]),
            "control_off_by_one_rel": rel_err(cached[:, 1:], full[:, :-1]),
-           "flash_vs_naive_prefill_rel": rel_err(ep["logits"][0],
-                                                 naive_prefill),
+           "flash_vs_naive_prefill_rel": rel_err(logits[0], plain_prefill),
            "argmax_agree_cached_full": float(
                (cached.argmax(-1) == full.argmax(-1)).float().mean()),
            "tol_rel": LOGIT_TOL_REL}
-    emit({"logit_check": res})
+    emit({label: res})
     if not (res["finite"]
             and res["cached_vs_full_rel"] <= LOGIT_TOL_REL
             and res["flash_vs_naive_prefill_rel"] <= LOGIT_TOL_REL
             and res["control_off_by_one_rel"] > LOGIT_TOL_REL):
-        raise RuntimeError(f"logit check failed: {res}")
+        raise RuntimeError(f"{label} failed: {res}")
     return res
 
 
@@ -1547,13 +1603,14 @@ def ssd_bound_ms(b: int, s: int, nh: int, hd: int, n: int,
         "operations" if ops_s >= bytes_s else "bytes"), ops
 
 
-def ssd_training_inputs(cfg, gen):
-    """Inputs at the training shapes with the model's ranges: x, B, C unit
-    normals in bf16; dt = softplus(normal / 2 + dt_bias), dt_bias drawn as
-    the init draws it; A = -Uniform[1, 16], as exp(A_log) at init."""
+def ssd_training_inputs(cfg, gen, batch: int = TRAIN_BATCH):
+    """Inputs at the training shapes (``batch`` x TRAIN_SEQ tokens) with the
+    model's ranges: x, B, C unit normals in bf16; dt = softplus(normal / 2
+    + dt_bias), dt_bias drawn as the init draws it; A = -Uniform[1, 16], as
+    exp(A_log) at init."""
     s = cfg.ssm
     nh, hd, n = s.n_heads(cfg.d_model), s.headdim, s.d_state
-    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    shape = (batch, TRAIN_SEQ)
     x = torch.randn(shape + (nh, hd), generator=gen, device=DEVICE)
     bias = torch.log(torch.expm1(torch.empty(nh, device=DEVICE).uniform_(
         1e-3, 1e-1, generator=gen)))
@@ -1578,13 +1635,14 @@ def flash_resources(fa, d: int, usage) -> dict:
             "smem_bytes": fa._library().flash_attention_smem_bytes(d)}
 
 
-def check_ssd(ssd, cfg, usage=None) -> dict:
+def check_ssd(ssd, cfg, usage=None, batch: int = TRAIN_BATCH) -> dict:
     """The SSD kernel against its plain version (``ssd_chunked``) at the
-    training shapes; no single PyTorch call computes the scan, so there is
-    no library yardstick. ``usage`` (from :func:`ptxas_usage`) adds each
-    pass's registers and shared memory."""
+    training shapes, or at the serving prefill's with ``batch`` 4; no
+    single PyTorch call computes the scan, so there is no library
+    yardstick. ``usage`` (from :func:`ptxas_usage`) adds each pass's
+    registers and shared memory."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    ins = ssd_training_inputs(cfg, gen)
+    ins = ssd_training_inputs(cfg, gen, batch)
     chunk = cfg.ssm.chunk_size
 
     def kernel():
@@ -1635,36 +1693,46 @@ def loss_and_gnorm(M, adamw, model, run, batch) -> tuple:
     return float(loss.detach()), float(gnorm)
 
 
-def check_train_step(M, adamw, ssd, cfg, run, batch) -> dict:
+def check_train_step(M, adamw, kernel, cfg, run, batch,
+                     expect_launches: int, label: str = "train_step_check"
+                     ) -> dict:
     """One train step's loss and gradient norm on the kernel path
-    (``flash``) against the plain chunked path (``blockwise``, the
-    reference's ``use_kernel=False``), same weights and batch."""
+    (``flash``) against the plain path (``blockwise``: the chunked scan,
+    the reference's ``use_kernel=False``, and blockwise attention), same
+    weights and batch; ``kernel`` (a wrapper with a ``launches`` count)
+    must launch ``expect_launches`` times on the kernel path. Reports the
+    kernel path's peak device memory."""
     model = M.build_model(cfg, seed=SEED, device=DEVICE).requires_grad_(True)
-    before = ssd.ssd_scan.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel.launches
     t0 = time.perf_counter()
     loss_k, gn_k = loss_and_gnorm(M, adamw, model, run, batch)
     kernel_s = time.perf_counter() - t0
-    launches = ssd.ssd_scan.launches - before
+    launches = kernel.launches - before
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     t0 = time.perf_counter()
     loss_p, gn_p = loss_and_gnorm(
         M, adamw, model, dataclasses.replace(run, attn_impl="blockwise"),
         batch)
     plain_s = time.perf_counter() - t0
-    res = {"loss_kernel": loss_k, "loss_plain": loss_p,
+    res = {"arch": cfg.name, "loss_kernel": loss_k, "loss_plain": loss_p,
            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
            "gnorm_kernel": gn_k, "gnorm_plain": gn_p,
            "gnorm_rel_diff": abs(gn_k - gn_p) / abs(gn_p),
            "tol_loss_rel": STEP_LOSS_TOL_REL,
            "tol_gnorm_rel": STEP_GNORM_TOL_REL,
            "kernel_path_s": kernel_s, "plain_path_s": plain_s,
-           "ssd_launches_kernel_path": launches}
-    emit({"train_step_check": res})
+           "kernel_path_peak_gb": peak_gb,
+           "launches_kernel_path": launches,
+           "launches_expected": expect_launches}
+    emit({label: res})
     del model
     torch.cuda.empty_cache()
     if not (math.isfinite(loss_k) and math.isfinite(gn_k)
             and res["loss_rel_diff"] <= STEP_LOSS_TOL_REL
             and res["gnorm_rel_diff"] <= STEP_GNORM_TOL_REL
-            and launches == 2 * cfg.n_layers):
+            and launches == expect_launches):
         raise RuntimeError(f"the kernel path's train step disagrees with "
                            f"the plain one: {res}")
     return res
@@ -1850,6 +1918,107 @@ def profile_training(ops, tr) -> dict:
     return {"wall_ms": wall_ms, "device_ms": total,
             "busy_share": total / wall_ms, "idle_share": 1 - total / wall_ms,
             **split, "top": [[k[:90], v] for k, v in top]}
+
+
+# --- 11-13: SSM serving, the encoder-decoder and vision-language families ---
+
+def cached_steps(M, model, run, tokens, fed, **front) -> tuple:
+    """The model API's serving steps on the card: ``prefill`` (with the
+    prompt's ``frames`` or ``patches``), then a ``decode_step`` for each
+    token of ``fed`` [B, n]. Returns every step's logits, the prefill's
+    seconds and a decode step's milliseconds (synchronized host clock)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(model, run, tokens, S_MAX, **front)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    start = tokens.shape[1] + (front["patches"].shape[1]
+                               if "patches" in front else 0)
+    out = [logits]
+    for i in range(fed.shape[1]):
+        logits, cache = M.decode_step(model, run, fed[:, i:i + 1], cache,
+                                      start + i)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return out, {"prefill_s": prefill_s,
+                 "decode_ms_per_step": (time.perf_counter() - t0 - prefill_s)
+                 / fed.shape[1] * 1e3}
+
+
+def ssm_serving(ssd, fa, sl, M, cfg, run, power_w: float, usage) -> tuple:
+    """mamba2-370m served: the SSD kernel against its plain version at the
+    serving prefill's shapes, then ``Server`` answering N_REQUESTS
+    requests (the SSD kernel in prefill, O(1) recurrent decode), its first
+    epoch's cached logits against a plain full forward at chunk
+    SSM_FULL_CHUNK. Returns the SSD check and the launches over the
+    serving path."""
+    case = check_ssd(ssd, cfg, usage, batch=SERVE_BATCH)
+    srv, probe, launches = serve(fa, sl, cfg, run, power_w,
+                                 kernel=ssd.ssd_scan, kernel_name="ssd")
+    full_cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, chunk_size=SSM_FULL_CHUNK))
+    full = M.Transformer(full_cfg, dict(srv.model.state_dict()))
+    ep = probe.epochs[0]
+    # every step's argmax, the last too: 2048 + 32 = 65 chunks of 32
+    fed = torch.stack([lg.argmax(-1) for lg in ep["logits"]], dim=1)
+    logit_gate(M, srv.model, srv.run, ep["tokens"], ep["logits"], fed=fed,
+               full_model=full, label="ssm_logit_check")
+    emit({"ssm_profile": profile_serving(M, srv, ep["tokens"])})
+    del srv, probe, full, ep
+    torch.cuda.empty_cache()
+    return case, launches
+
+
+def family_batches(M, cfg) -> tuple:
+    """A prefill and a train batch at SERVE_BATCH x PROMPT_LEN positions
+    from ``make_batch`` (seamless: 2048 tokens and 512 frames; internvl2:
+    256 patches and 1792 tokens), moved to the card."""
+    from repro_torch.configs.base import ShapeConfig
+    gen = torch.Generator().manual_seed(SEED)
+    return tuple({k: v.to(DEVICE) for k, v in M.make_batch(
+        cfg, ShapeConfig(kind, PROMPT_LEN, SERVE_BATCH, kind), gen).items()}
+        for kind in ("prefill", "train"))
+
+
+def family_paths(fa, M, adamw, cfg, run, label: str) -> dict:
+    """An encoder-decoder or vision-language model through the model API:
+    prefill with its frontend (frames or patches) and MAX_NEW - 1 decode
+    steps of seeded random tokens (not greedy: a random model's argmax
+    can repeat one token, and the off-by-one control then compares alike
+    inputs) against a plain full forward, then one train step on the
+    kernel path against the plain path. Each path's flash launches are
+    counted from 0: one per attention layer (decoder and encoder) a
+    forward, and a train step's per-layer checkpoints run every forward
+    twice."""
+    prefill_batch, train_batch = family_batches(M, cfg)
+    tokens = prefill_batch.pop("tokens")
+    fed = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, MAX_NEW - 1),
+                        generator=torch.Generator().manual_seed(SEED)
+                        ).to(DEVICE)
+    per_forward = cfg.n_layers + cfg.encoder_layers
+    model = M.build_model(cfg, seed=SEED, device=DEVICE)
+    fa.flash_attention.launches = 0
+    logits, timing = cached_steps(M, model, run, tokens, fed,
+                                  **prefill_batch)
+    launches = {"prefill_decode": fa.flash_attention.launches}
+    emit({f"{label}_prefill_decode": {
+        "arch": cfg.name, "tokens": list(tokens.shape),
+        **{k: list(v.shape) for k, v in prefill_batch.items()}, **timing,
+        "flash_launches": launches["prefill_decode"],
+        "params": sum(p.numel() for p in model.parameters())}})
+    logit_gate(M, model, run, tokens, logits, fed=fed,
+               label=f"{label}_logit_check", **prefill_batch)
+    del model, logits
+    torch.cuda.empty_cache()
+    trun = dataclasses.replace(run, remat="block")
+    fa.flash_attention.launches = 0
+    check_train_step(M, adamw, fa.flash_attention, cfg, trun, train_batch,
+                     2 * per_forward, label=f"{label}_train_step_check")
+    launches["train_step"] = fa.flash_attention.launches
+    if launches["prefill_decode"] != per_forward:
+        raise RuntimeError(f"{label}: flash launches {launches} != "
+                           f"{per_forward} a prefill")
+    return launches
 
 
 def main() -> int:
@@ -2046,7 +2215,8 @@ def main() -> int:
     batch = TokenPipeline(vocab_size=tcfg.vocab_size, seq_len=TRAIN_SEQ,
                           batch=TRAIN_BATCH, seed=SEED,
                           device=DEVICE).next_batch()
-    check_train_step(M, adamw, ssd, tcfg, trun, batch)
+    check_train_step(M, adamw, ssd.ssd_scan, tcfg, trun, batch,
+                     2 * tcfg.n_layers)
     del batch
     tr, ssd_launches = train(tl, ssd, tcfg, trun, power_limit_w(card))
     emit({"train_profile": profile_training(ops, tr)})
@@ -2054,27 +2224,78 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.mark("10 training")
 
-    # 11. results
+    # 11. SSM serving: mamba2-370m through the SSD kernel in prefill and
+    # O(1) recurrent decode from its final state
+    scfg = get_config(SSM_ARCH)
+    srun = RunConfig(arch=SSM_ARCH, attn_impl="flash", remat="none",
+                     seed=SEED)
+    ssd_serve_case, ssd_serve_launches = ssm_serving(
+        ssd, fa, sl, M, scfg, srun, power_limit_w(card),
+        ptxas_usage(built[ssd._SOURCE.name][1], SSD_KERNEL_PREFIX))
+    clock.mark("11 ssm serving")
+
+    # 12. seamless-m4t-medium: the encoder's non-causal flash and the
+    # decoder's causal flash at head_dim 64, prefill with audio frames and
+    # decode through the cross-attention cache, one train step
+    flash_usage = ptxas_usage(built[fa._SOURCE.name][1], FLASH_KERNEL)
+    ecfg = get_config(ENCDEC_ARCH)
+    flash_cases += check_flash(fa, ecfg, flash_usage, ENCDEC_FLASH_CASES)
+    flash_paths = {"8 serve gemma3-12b": flash_launches}
+    for path, n in family_paths(
+            fa, M, adamw, ecfg, RunConfig(arch=ENCDEC_ARCH, attn_impl="flash",
+                                          remat="none", seed=SEED),
+            "seamless").items():
+        flash_paths[f"12 seamless {path}"] = n
+    clock.mark("12 seamless")
+
+    # 13. internvl2-1b: flash at GQA 14:2, Server on text-only prompts,
+    # prefill with 256 patches and decode, one train step
+    vcfg = get_config(VLM_ARCH)
+    flash_cases += check_flash(fa, vcfg, flash_usage, VLM_FLASH_CASES)
+    vrun = RunConfig(arch=VLM_ARCH, attn_impl="flash", remat="none",
+                     seed=SEED)
+    srv, probe, flash_paths["13 internvl2 serve"] = serve(
+        fa, sl, vcfg, vrun, power_limit_w(card))
+    emit({"internvl2_profile": profile_serving(
+        M, srv, probe.epochs[0]["tokens"])})
+    del srv, probe
+    torch.cuda.empty_cache()
+    for path, n in family_paths(fa, M, adamw, vcfg, vrun,
+                                "internvl2").items():
+        flash_paths[f"13 internvl2 {path}"] = n
+    clock.mark("13 internvl2")
+
+    # 14. results
     worst = max(flash_cases, key=lambda c: c["rel_rms_err"])
     kernels.append(
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
          "replaces": "src/repro/kernels/flash_attention.py:30",
-         "launches": flash_launches,
+         "launches": sum(flash_paths.values()),
+         "launches_by_path": flash_paths,
          "max_abs_err": max(c["max_abs_err"] for c in flash_cases),
          "rel_rms_err": worst["rel_rms_err"],
          **{k: flash_cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")},
          "timed_case": flash_cases[0]["case"],
          "cases": {c["case"]: {k: c[k] for k in (
-             "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
-             "rel_rms_err")} for c in flash_cases}})
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "max_abs_err", "rel_rms_err")} for c in flash_cases}})
+    ssd_cases = {"training": ssd_case, "serving_b4": ssd_serve_case}
     kernels.append(
         {"name": "ssd_scan", "route": "cuda", "source": SSD_SRC,
          "replaces": "src/repro/kernels/ssd_scan.py:26",
-         "launches": ssd_launches,
+         "launches": ssd_launches + ssd_serve_launches,
+         "launches_by_path": {"10 train mamba2-370m": ssd_launches,
+                              "11 serve mamba2-370m": ssd_serve_launches},
+         **{k: max(c[k] for c in ssd_cases.values()) for k in (
+             "max_abs_err", "y_rel_rms_err", "h_rel_rms_err")},
          **{k: ssd_case[k] for k in (
-             "max_abs_err", "y_rel_rms_err", "h_rel_rms_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "timed_case": "training",
+         "cases": {name: {k: c[k] for k in (
+             "x", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+             "y_rel_rms_err", "h_rel_rms_err")}
+             for name, c in ssd_cases.items()}})
     emit({"phase_s": clock.phases})
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)

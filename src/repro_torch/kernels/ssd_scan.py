@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -78,12 +78,14 @@ def _segsum_decay(dt_a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan in f32, the plain version of :func:`ssd_scan`.
 
     x [B, S, nh, hd]; dt [B, S, nh] (post-softplus, > 0); A [nh] (< 0);
-    Bm/Cm [B, S, G, N] with heads ``g * (nh // G) ...`` reading group g.
+    Bm/Cm [B, S, G, N] with heads ``g * (nh // G) ...`` reading group g;
+    h0 [B, nh, hd, N], the state before the first token (zero if None).
     Returns (y [B, S, nh, hd] in x's dtype, h_final [B, nh, hd, N] f32).
     The heads are split as (G, nh // G) and broadcast against B and C
     rather than repeated, so nothing of size nh x N is copied.
@@ -117,7 +119,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         bsz, nc, nh, hd, n)
 
     # cross-chunk recurrence; each chunk reads the state before it
-    h = torch.zeros((bsz, nh, hd, n), dtype=f32, device=x.device)
+    h = (torch.zeros((bsz, nh, hd, n), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)

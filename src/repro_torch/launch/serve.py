@@ -5,7 +5,9 @@ on the port's flash-attention kernel path.
         --requests 8 --prompt-len 32 --max-new 16 [--full] [--device cpu]
 
 Serves the reduced config unless ``--full`` asks for the real widths and
-depth; runs on ``cuda`` unless ``--device cpu``.
+depth; runs on ``cuda`` unless ``--device cpu``. Any architecture of a
+family the ``Server`` serves (dense, ssm, vlm text-only); an SSM's prompt
+length defaults to one scan chunk, as its prefill takes whole chunks.
 """
 from __future__ import annotations
 
@@ -14,20 +16,21 @@ import sys
 
 import torch
 
-from repro_torch.configs import ARCHS, ShapeConfig, get_config, get_reduced
+from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.configs.base import RunConfig
-from repro_torch.models.model import make_batch
-from repro_torch.runtime.serve_loop import Request, Server
+from repro_torch.runtime.serve_loop import SERVED_FAMILIES, Request, Server
 
-DENSE_ARCHS = tuple(a for a in ARCHS if get_config(a).family == "dense")
+SERVED_ARCHS = tuple(a for a in ARCHS
+                     if get_config(a).family in SERVED_FAMILIES)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=DENSE_ARCHS, default="gemma3-12b")
+    ap.add_argument("--arch", choices=SERVED_ARCHS, default="gemma3-12b")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="default 32, or an SSM's scan chunk")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--full", action="store_true",
                     help="serve the full-size config, not the reduced one")
@@ -35,14 +38,17 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
+    prompt_len = args.prompt_len or (cfg.ssm.chunk_size
+                                     if cfg.family == "ssm" else 32)
     run = RunConfig(arch=args.arch, attn_impl="flash", remat="none")
     srv = Server(cfg, run, batch=args.batch,
-                 s_max=args.prompt_len + args.max_new, device=args.device)
+                 s_max=prompt_len + args.max_new, device=args.device)
     print(f"serving {args.arch} ({'full' if args.full else 'reduced'}) "
           f"on {srv.device} at {srv.site}")
-    prompts = make_batch(cfg, ShapeConfig("serve", args.prompt_len,
-                                          args.requests, "prefill"),
-                         torch.Generator().manual_seed(0))["tokens"]
+    # token ids as make_batch draws them (the reference's range)
+    prompts = torch.randint(0, min(cfg.vocab_size, 255),
+                            (args.requests, prompt_len),
+                            generator=torch.Generator().manual_seed(0))
     for i in range(args.requests):
         srv.submit(Request(rid=i, prompt=prompts[i],
                            max_new_tokens=args.max_new))

@@ -3,8 +3,9 @@
 The reference stacks every decoder weight over scan groups
 (``decoder.blocks.sub{i}.<...>`` with a leading group axis); the port has
 one module per layer. Layer ``g * period + i`` takes
-``blocks["sub{i}"][...][g]``; the other leaves keep their paths, joined
-with dots.
+``blocks["sub{i}"][...][g]``; encoder layer ``i`` takes
+``encoder.blocks[...][i]`` as ``encoder.layers.{i}.<...>``; the other
+leaves keep their paths, joined with dots.
 """
 from __future__ import annotations
 
@@ -23,15 +24,15 @@ def unstack(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     period = block_period(cfg)
     out: Dict[str, torch.Tensor] = {}
     for path, t in tree_leaves(tree):
-        if path[0] == "encoder":
-            raise NotImplementedError("encoder weights come with the "
-                                      "encoder-decoder slice of the port "
-                                      "(ROADMAP.md, queue 1)")
         if path[:2] == ("decoder", "blocks"):
             i = int(path[2][len("sub"):])
             rest = ".".join(path[3:])
             for g in range(t.shape[0]):
                 out[f"decoder.layers.{g * period + i}.{rest}"] = t[g]
+        elif path[:2] == ("encoder", "blocks"):
+            rest = ".".join(path[2:])
+            for i in range(t.shape[0]):
+                out[f"encoder.layers.{i}.{rest}"] = t[i]
         else:
             out[".".join(path)] = t
     return out

@@ -3,8 +3,10 @@
 Attention sub-layers use either a full-length cache [B, S_max, nkv, h] or a
 ring buffer [B, W, nkv, h] for sliding-window layers; keys are stored
 post-RoPE, so slot validity/positions are derived from the scalar step
-counter (no per-slot position storage). The reference stacks its cache
-tree over scan groups; the port keeps one ``{"k", "v"}`` dict per layer,
+counter (no per-slot position storage). SSM sub-layers carry an
+SSMState as ``{"conv", "h"}``; with an encoder every layer also holds the
+encoder's cross-attention keys and values, ``{"xk", "xv"}``. The reference
+stacks its cache tree over scan groups; the port keeps one dict per layer,
 in layer order, as its layer stack is a Python loop.
 """
 from __future__ import annotations
@@ -15,9 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
-
-_NOT_PORTED = ("{} caches come with the {} slice of the port (ROADMAP.md, "
-               "queue 1)")
+from repro_torch.models.ssm import init_ssm_state
 
 
 def ring_positions(cur: int, size: int, window: bool,
@@ -44,21 +44,30 @@ def layer_specs(cfg: ModelConfig) -> List[P.SubLayerSpec]:
     return [specs[i % len(specs)] for i in range(cfg.n_layers)]
 
 
-def zero_cache(cfg: ModelConfig, batch: int, s_max: int, *,
-               device: Union[str, torch.device] = "cpu"
+def zero_cache(cfg: ModelConfig, batch: int, s_max: int, enc_len: int = 0,
+               *, device: Union[str, torch.device] = "cpu"
                ) -> List[Dict[str, torch.Tensor]]:
-    """One zeroed ``{"k", "v"}`` cache per decoder layer."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "Cross-attention", "encoder-decoder"))
+    """One zeroed cache dict per decoder layer: ``k``/``v`` [B, size, nkv,
+    h] for attention, ``conv`` [B, w-1, conv_ch] and ``h`` [B, nh, hd, N]
+    (f32) for SSM layers, and ``xk``/``xv`` [B, enc_len, nkv, h] with an
+    encoder."""
     dtype = P.torch_dtype(cfg.dtype)
+    nkv, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     out = []
     for spec in layer_specs(cfg):
-        if spec.mixer != "attn":
-            raise NotImplementedError(_NOT_PORTED.format("SSM",
-                                                         "SSM serving"))
-        shape = (batch, cache_sizes(cfg, spec, s_max), cfg.n_kv_heads,
-                 cfg.head_dim)
-        out.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                    "v": torch.zeros(shape, dtype=dtype, device=device)})
+        if spec.mixer == "attn":
+            sz = cache_sizes(cfg, spec, s_max)
+            sub = {"k": zeros(batch, sz, nkv, hd),
+                   "v": zeros(batch, sz, nkv, hd)}
+        else:
+            st = init_ssm_state(batch, cfg.d_model, cfg.ssm, dtype, device)
+            sub = {"conv": st.conv, "h": st.h}
+        if cfg.encoder_layers:
+            sub["xk"] = zeros(batch, enc_len, nkv, hd)
+            sub["xv"] = zeros(batch, enc_len, nkv, hd)
+        out.append(sub)
     return out

@@ -1,11 +1,14 @@
-"""Model-level API: the ``Transformer`` module, embedding, prefill/decode
-steps, the plain full forward and ``make_batch``.
+"""Model-level API: the ``Transformer`` module, embedding, losses,
+prefill/decode steps, the plain full forward and ``make_batch``.
 
 Batch layouts per shape kind, as in the reference's ``models/model.py``:
-  train:   {tokens [B,S], targets [B,S]}
-  prefill: {tokens [B,S]}                   -> (last_logits, cache)
+  train:   {tokens [B,S_txt], targets [B,S_txt], (+frontend)}
+  prefill: {tokens [B,S_txt], (+frontend)}  -> (last_logits, cache)
   decode:  {token [B,1], cache, cur}        -> (logits, cache)
-The text-only dense family serves and trains; the ssm family trains.
+
+Frontend stubs, as in the reference: 'audio' (``encdec``) supplies encoder
+frames [B, S//4, d_model]; 'vision' (``vlm``) supplies patch embeddings
+[B, 256, d_model] prepended to the text sequence (text length = S - 256).
 """
 from __future__ import annotations
 
@@ -21,19 +24,24 @@ from repro_torch.models import kvcache as KC
 from repro_torch.models.convert import unstack
 from repro_torch.models.layers import check_attn_impl
 from repro_torch.models.params import init_params
-from repro_torch.models.transformer import Cache, Decoder, ParamGroup
+from repro_torch.models.transformer import (Cache, Decoder, Encoder,
+                                            ParamGroup)
+
+AUDIO_DOWNSAMPLE = 4  # audio frontend emits one frame per 4 target positions
 
 
 class Transformer(nn.Module):
-    """Embedding, decoder stack and output head over a state dict in the
-    port's naming (``embed.tok``, ``decoder.layers.{i}.attn.wqkv``, ...,
-    ``decoder.norm``, ``lm_head``). The tensors become the parameters as
-    they are: no copy."""
+    """Embedding, encoder (with ``cfg.encoder_layers``), decoder stack and
+    output head over a state dict in the port's naming (``embed.tok``,
+    ``encoder.layers.{i}.attn.wqkv``, ..., ``encoder.norm``,
+    ``decoder.layers.{i}.attn.wqkv``, ..., ``decoder.norm``, ``lm_head``).
+    The tensors become the parameters as they are: no copy."""
 
     def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor]):
         super().__init__()
         self.cfg = cfg
         self.embed = ParamGroup({"tok": state["embed.tok"]})
+        self.encoder = Encoder(cfg, state) if cfg.encoder_layers else None
         self.decoder = Decoder(cfg, state)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(state["lm_head"], requires_grad=False)
@@ -55,12 +63,29 @@ def build_model(cfg: ModelConfig, *, seed: int = 0,
 
 
 # ------------------------------------------------------------- embeddings --
-def embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def embed(model: Transformer, tokens: torch.Tensor,
+          patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings [B, S, d]; a ``vlm`` prepends ``patches`` [B, P, d]
+    first, and both are scaled, as in the reference."""
     x = model.embed.tok[tokens]
+    if model.cfg.family == "vlm" and patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     # the scale is rounded to the param dtype first: bf16 gives 62.0 for
     # sqrt(3840), as the reference's jnp.asarray(d ** 0.5, x.dtype) does
     return x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype,
                             device=x.device)
+
+
+def encode(model: Transformer, run: RunConfig,
+           frames: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The encoder's output over ``frames`` [B, S_enc, d] for an
+    ``encdec`` model, cast to the model's dtype first; None otherwise."""
+    if model.cfg.family != "encdec":
+        return None
+    if frames is None:
+        raise ValueError(f"{model.cfg.name} encodes audio frames; none "
+                         f"were given")
+    return model.encoder(frames.to(model.embed.tok.dtype), run)
 
 
 def unembed(model: Transformer, x: torch.Tensor) -> torch.Tensor:
@@ -99,11 +124,16 @@ def chunked_xent(model: Transformer, x: torch.Tensor, targets: torch.Tensor,
 def loss_fn(model: Transformer, run: RunConfig,
             batch: Mapping[str, torch.Tensor], *, xent_chunk: int = 2048
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy of the text-only families (no MoE
-    auxiliary loss: MoE comes with a later slice). Returns (loss, {"nll",
-    "aux"})."""
+    """Mean next-token cross-entropy (no MoE auxiliary loss: MoE comes
+    with a later slice). An ``encdec`` batch carries ``frames`` for the
+    encoder; a ``vlm`` batch carries ``patches``, whose positions are not
+    scored. Returns (loss, {"nll", "aux"})."""
     check_attn_impl(run.attn_impl)
-    x = model.decoder(embed(model, batch["tokens"]), run, mode="train")
+    enc_out = encode(model, run, batch.get("frames"))
+    x = model.decoder(embed(model, batch["tokens"], batch.get("patches")),
+                      run, mode="train", enc_out=enc_out)
+    if model.cfg.family == "vlm":
+        x = x[:, model.cfg.n_frontend_tokens:, :]
     nll_sum, denom = chunked_xent(model, x, batch["targets"], xent_chunk)
     loss = nll_sum / denom
     return loss, {"nll": loss.detach(),
@@ -114,12 +144,19 @@ def loss_fn(model: Transformer, run: RunConfig,
 # ------------------------------------------------------------- serving -----
 @torch.inference_mode()
 def prefill(model: Transformer, run: RunConfig, tokens: torch.Tensor,
-            s_max: int) -> Tuple[torch.Tensor, List[Cache]]:
-    """tokens [B, S] -> (f32 logits at the last position [B, V], cache)."""
+            s_max: int, *, frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, List[Cache]]:
+    """tokens [B, S] (after ``patches`` [B, P, d] for a ``vlm``; with
+    ``frames`` [B, S_enc, d] for an ``encdec``) -> (f32 logits at the last
+    position [B, V], cache)."""
     check_attn_impl(run.attn_impl)
+    enc_out = encode(model, run, frames)
     cache = KC.zero_cache(model.cfg, tokens.shape[0], s_max,
+                          0 if enc_out is None else enc_out.shape[1],
                           device=tokens.device)
-    x = model.decoder(embed(model, tokens), run, mode="prefill", cache=cache)
+    x = model.decoder(embed(model, tokens, patches), run, mode="prefill",
+                      cache=cache, enc_out=enc_out)
     logits = unembed(model, x[:, -1:, :])[:, 0]
     return logits.float(), cache
 
@@ -137,33 +174,51 @@ def decode_step(model: Transformer, run: RunConfig, token: torch.Tensor,
 
 
 @torch.inference_mode()
-def forward_hidden(model: Transformer, run: RunConfig,
-                   tokens: torch.Tensor) -> torch.Tensor:
-    """The plain full forward: tokens [B, S] -> final hidden states
-    [B, S, d], no cache. Unembed only the positions a caller needs: at
+def forward_hidden(model: Transformer, run: RunConfig, tokens: torch.Tensor,
+                   *, frames: Optional[torch.Tensor] = None,
+                   patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain full forward: tokens [B, S] (and ``frames`` or
+    ``patches`` as :func:`prefill` takes them) -> final hidden states
+    [B, P + S, d], no cache. Unembed only the positions a caller needs: at
     gemma3-12b's vocabulary all of them would be [B, S, 262144] f32."""
     check_attn_impl(run.attn_impl)
-    return model.decoder(embed(model, tokens), run, mode="train")
+    return model.decoder(embed(model, tokens, patches), run, mode="train",
+                         enc_out=encode(model, run, frames))
 
 
 # ------------------------------------------------------------ input batch --
+def text_len(cfg: ModelConfig, seq_len: int) -> int:
+    return seq_len - (cfg.n_frontend_tokens if cfg.family == "vlm" else 0)
+
+
 def make_batch(cfg: ModelConfig, shape: ShapeConfig,
                generator: torch.Generator) -> Dict[str, object]:
-    """Random text inputs of one shape kind on the CPU, token ids drawn
-    uniformly from ``[0, min(vocab, 255))`` with ``generator`` (the
-    reference's range)."""
+    """Random inputs of one shape kind on the CPU, drawn with
+    ``generator``: token ids uniform in ``[0, min(vocab, 255))`` (the
+    reference's range) over the text length, and for train and prefill an
+    ``encdec``'s f32 ``frames`` [B, S//4, d] or a ``vlm``'s f32 ``patches``
+    [B, 256, d], normals times 0.02 as the reference draws them."""
     b, hi = shape.global_batch, min(cfg.vocab_size, 255)
+    s, stl = shape.seq_len, text_len(cfg, shape.seq_len)
 
     def ids(*size):
         return torch.randint(0, hi, size, generator=generator,
                              dtype=torch.int64)
 
-    if shape.kind == "train":
-        return {"tokens": ids(b, shape.seq_len),
-                "targets": ids(b, shape.seq_len)}
-    if shape.kind == "prefill":
-        return {"tokens": ids(b, shape.seq_len)}
+    def embeddings(n):
+        return torch.randn((b, n, cfg.d_model), generator=generator) * 0.02
+
+    if shape.kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown shape kind {shape.kind!r}")
     if shape.kind == "decode":
+        enc_len = s // AUDIO_DOWNSAMPLE if cfg.family == "encdec" else 0
         return {"token": ids(b, 1),
-                "cache": KC.zero_cache(cfg, b, shape.seq_len), "cur": 0}
-    raise ValueError(f"unknown shape kind {shape.kind!r}")
+                "cache": KC.zero_cache(cfg, b, s, enc_len), "cur": 0}
+    out: Dict[str, object] = {"tokens": ids(b, stl)}
+    if shape.kind == "train":
+        out["targets"] = ids(b, stl)
+    if cfg.family == "encdec":
+        out["frames"] = embeddings(s // AUDIO_DOWNSAMPLE)
+    if cfg.family == "vlm":
+        out["patches"] = embeddings(cfg.n_frontend_tokens)
+    return out

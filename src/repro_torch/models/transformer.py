@@ -1,18 +1,19 @@
-"""The decoder stack as ``torch.nn`` modules.
+"""The decoder and encoder stacks as ``torch.nn`` modules.
 
 The reference scans ``n_groups`` repetitions of a ``period``-long block
 pattern with stacked parameters; here the stack is a Python loop over one
 module per layer (layer ``g * period + i`` is the reference's group ``g``,
 sub-layer ``i``). One code path serves train (the plain full forward),
 prefill and decode — the mode only changes positions, masking source, and
-cache handling. The ``dense`` family runs every mode; the ``ssm`` family
-(Mamba-2) trains, and its prefill and decode raise until the SSM serving
-item of the port; the other families raise until their slice.
+cache handling. The ``dense``, ``ssm`` (Mamba-2), ``encdec`` (a
+bidirectional encoder and cross-attention in every decoder layer) and
+``vlm`` families run every mode; ``moe`` and ``hybrid`` raise until their
+slice.
 
 With ``run.remat != "none"`` a training forward checkpoints each group of
-``period`` layers (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint`` around a scan group): the backward pass reruns the
-group's forward, kernels included.
+``period`` decoder layers and each encoder layer
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` around a
+scan step): the backward pass reruns the forward, kernels included.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from repro_torch.models import kvcache as KC
 from repro_torch.models import params as P
 from repro_torch.models.layers import (apply_rope, attention,
                                        attention_projections, ffn, rms_norm)
-from repro_torch.models.ssm import NOT_PORTED, mamba_block
+from repro_torch.models.ssm import SSMState, mamba_block
 
 Cache = Dict[str, torch.Tensor]
 
@@ -112,6 +113,33 @@ def _attn_sublayer(cfg: ModelConfig, run: RunConfig, spec: P.SubLayerSpec,
     return out @ p["wo"].to(x.dtype)
 
 
+def _cross_sublayer(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                    x: torch.Tensor, *, mode: str,
+                    enc_out: Optional[torch.Tensor],
+                    cache: Optional[Cache]) -> torch.Tensor:
+    """Cross-attention to the encoder's output: naive and non-causal, every
+    query at position 0. Prefill writes the encoder's keys and values into
+    ``cache`` in place; decode reads them from there."""
+    B, S, _ = x.shape
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = (h @ p["wq"].to(x.dtype)).reshape(B, S, nq, hd)
+    if mode == "decode":
+        k, v = cache["xk"], cache["xv"]
+    else:
+        k, v = torch.chunk(enc_out @ p["wkv"].to(x.dtype), 2, dim=-1)
+        k = k.reshape(B, -1, nkv, hd)
+        v = v.reshape(B, -1, nkv, hd)
+        if mode == "prefill":
+            cache["xk"].copy_(k)
+            cache["xv"].copy_(v)
+    out = attention(q, k, v, q_pos=torch.zeros(S, dtype=torch.long,
+                                               device=x.device),
+                    kv_pos=torch.arange(k.shape[1], device=x.device),
+                    causal=False, impl="naive")
+    return out.reshape(B, S, nq * hd) @ p["wo"].to(x.dtype)
+
+
 def _ffn_sublayer(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                   x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -120,20 +148,30 @@ def _ffn_sublayer(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
 def _ssm_sublayer(cfg: ModelConfig, run: RunConfig,
                   p: Dict[str, torch.Tensor], x: torch.Tensor, *,
-                  mode: str) -> torch.Tensor:
+                  mode: str, cache: Optional[Cache]) -> torch.Tensor:
     """Mamba-2 sub-layer; the CUDA SSD kernel runs on the port's kernel
-    path (``attn_impl == "flash"``, the reference's ``"pallas"``)."""
-    if mode != "train":
-        raise NotImplementedError(NOT_PORTED.format(mode))
+    path (``attn_impl == "flash"``, the reference's ``"pallas"``). Prefill
+    (the reference's ``_ssm_prefill``) mixes the whole prompt and writes the
+    decode state after its last token into ``cache`` in place; decode
+    steps that state, in place."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    out, _ = mamba_block(p, h, cfg.ssm, norm_eps=cfg.norm_eps,
-                         use_kernel=(run.attn_impl == "flash"))
+    state = None
+    if mode == "decode":
+        state = SSMState(conv=cache["conv"], h=cache["h"])
+    out, new_state = mamba_block(p, h, cfg.ssm, state=state,
+                                 norm_eps=cfg.norm_eps,
+                                 use_kernel=(run.attn_impl == "flash"),
+                                 final_state=(mode == "prefill"))
+    if new_state is not None:
+        cache["conv"].copy_(new_state.conv)
+        cache["h"].copy_(new_state.h)
     return out
 
 
 # -------------------------------------------------------------- the stack ---
 class DecoderLayer(nn.Module):
-    """One mixer sub-layer (attention or Mamba-2) and its dense FFN."""
+    """One mixer sub-layer (attention or Mamba-2), cross-attention to the
+    encoder when there is one, and the dense FFN."""
 
     def __init__(self, cfg: ModelConfig, spec: P.SubLayerSpec,
                  state: Mapping[str, torch.Tensor], prefix: str):
@@ -143,18 +181,24 @@ class DecoderLayer(nn.Module):
             self.attn = _group(state, prefix + "attn.")
         else:
             self.ssm = _group(state, prefix + "ssm.")
+        if cfg.encoder_layers:
+            self.cross = _group(state, prefix + "cross.")
         if spec.has_ffn:
             self.ffn = _group(state, prefix + "ffn.")
 
     def forward(self, x: torch.Tensor, run: RunConfig, *, mode: str,
-                cur: Optional[int], cache: Optional[Cache]) -> torch.Tensor:
+                cur: Optional[int], cache: Optional[Cache],
+                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.spec.mixer == "attn":
             x = x + _attn_sublayer(self.cfg, run, self.spec,
                                    self.attn.params(), x, mode=mode,
                                    cur=cur, cache=cache)
         else:
             x = x + _ssm_sublayer(self.cfg, run, self.ssm.params(), x,
-                                  mode=mode)
+                                  mode=mode, cache=cache)
+        if self.cfg.encoder_layers:
+            x = x + _cross_sublayer(self.cfg, self.cross.params(), x,
+                                    mode=mode, enc_out=enc_out, cache=cache)
         if self.spec.has_ffn:
             x = x + _ffn_sublayer(self.cfg, self.ffn.params(), x)
         return x
@@ -165,11 +209,11 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor]):
         super().__init__()
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family in ("moe", "hybrid"):
             raise NotImplementedError(
                 f"the {cfg.family!r} family comes with a later slice of the "
-                f"port (ROADMAP.md, queue 1); the port runs 'dense' and "
-                f"trains 'ssm'")
+                f"port (ROADMAP.md, queue 1, item 6: moe.py and the moe and "
+                f"hybrid families)")
         self.cfg = cfg
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, spec, state, f"decoder.layers.{i}.")
@@ -178,9 +222,12 @@ class Decoder(nn.Module):
 
     def forward(self, x: torch.Tensor, run: RunConfig, *, mode: str,
                 cache: Optional[List[Cache]] = None,
-                cur: Optional[int] = None) -> torch.Tensor:
+                cur: Optional[int] = None,
+                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B, S, d] -> the final-normed hidden states; ``cache`` (one
-        dict per layer) is written in place in prefill and decode."""
+        dict per layer) is written in place in prefill and decode;
+        ``enc_out`` [B, S_enc, d] is the encoder's output in train and
+        prefill (decode reads it from the cache)."""
         if (cache is None) != (mode == "train"):
             raise ValueError("prefill and decode take a cache, train none")
         remat = (mode == "train" and run.remat != "none"
@@ -188,7 +235,8 @@ class Decoder(nn.Module):
         period = P.block_period(self.cfg)
         for g in range(0, len(self.layers), period):
             caches = None if cache is None else cache[g:g + period]
-            args = (x, self.layers[g:g + period], run, mode, cur, caches)
+            args = (x, self.layers[g:g + period], run, mode, cur, caches,
+                    enc_out)
             x = (checkpoint(_run_group, *args, use_reentrant=False)
                  if remat else _run_group(*args))
         return rms_norm(x, self.norm, self.cfg.norm_eps)
@@ -196,8 +244,61 @@ class Decoder(nn.Module):
 
 def _run_group(x: torch.Tensor, layers: nn.ModuleList, run: RunConfig,
                mode: str, cur: Optional[int],
-               caches: Optional[List[Cache]]) -> torch.Tensor:
+               caches: Optional[List[Cache]],
+               enc_out: Optional[torch.Tensor]) -> torch.Tensor:
     for i, layer in enumerate(layers):
         x = layer(x, run, mode=mode, cur=cur,
-                  cache=None if caches is None else caches[i])
+                  cache=None if caches is None else caches[i],
+                  enc_out=enc_out)
     return x
+
+
+class EncoderLayer(nn.Module):
+    """Bidirectional self-attention and the FFN (the reference's
+    ``run_encoder`` scan body)."""
+
+    def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor],
+                 prefix: str):
+        super().__init__()
+        self.cfg = cfg
+        self.attn = _group(state, prefix + "attn.")
+        self.ffn = _group(state, prefix + "ffn.")
+
+    def forward(self, x: torch.Tensor, run: RunConfig) -> torch.Tensor:
+        cfg, p = self.cfg, self.attn.params()
+        B, S, _ = x.shape
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        q, k, v = attention_projections(
+            p, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim)
+        pos = torch.arange(S, device=x.device)
+        if cfg.rope_theta > 0:
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        out = attention(q, k, v, q_pos=pos, kv_pos=pos, causal=False,
+                        impl=run.attn_impl, block_kv=run.attn_block_kv)
+        x = x + out.reshape(B, S, cfg.n_heads * cfg.head_dim) \
+            @ p["wo"].to(x.dtype)
+        return x + _ffn_sublayer(cfg, self.ffn.params(), x)
+
+
+class Encoder(nn.Module):
+    """The reference's ``run_encoder``: ``encoder_layers`` bidirectional
+    layers over precomputed frontend frames [B, S, d], and a final norm.
+    On the kernel path its attention is the flash kernel, non-causal."""
+
+    def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, state, f"encoder.layers.{i}.")
+            for i in range(cfg.encoder_layers))
+        self.norm = nn.Parameter(state["encoder.norm"], requires_grad=False)
+
+    def forward(self, frames: torch.Tensor, run: RunConfig) -> torch.Tensor:
+        remat = run.remat != "none" and torch.is_grad_enabled()
+        x = frames
+        for layer in self.layers:
+            x = (checkpoint(layer, x, run, use_reentrant=False) if remat
+                 else layer(x, run))
+        return rms_norm(x, self.norm, self.cfg.norm_eps)

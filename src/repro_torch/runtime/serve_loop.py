@@ -42,6 +42,12 @@ class Completion:
     site: str
 
 
+# Families the Server serves: text prompts in, tokens out. A ``vlm`` is
+# served text only, as the reference's Server passes only ``{"tokens"}``;
+# an ``encdec`` model needs audio frames, which neither Server has.
+SERVED_FAMILIES = ("dense", "ssm", "vlm")
+
+
 def pick_site(cluster: Cluster, t: float) -> str:
     """Space/overlay lever for serving: greenest site hosts the replicas."""
     return min(cluster.sites.values(),
@@ -57,7 +63,8 @@ class Server:
     raises): random weights from ``run.seed``, or ``params``, a state dict
     in the port's naming (see :mod:`repro_torch.models.convert`). Energy is
     ``chip_count * chip_power_w * wall time``; the defaults are one NVIDIA
-    H100 SXM at its 700 W board limit (data sheet).
+    H100 SXM at its 700 W board limit (data sheet). It serves the
+    :data:`SERVED_FAMILIES` (else ``ValueError``).
     """
 
     def __init__(self, cfg: ModelConfig, run: Optional[RunConfig] = None, *,
@@ -67,6 +74,10 @@ class Server:
                  now: float = PAPER_WINDOW_T0,
                  device: Optional[Union[str, torch.device]] = None,
                  params: Optional[Mapping[str, torch.Tensor]] = None):
+        if cfg.family not in SERVED_FAMILIES:
+            raise ValueError(f"Server serves the {SERVED_FAMILIES} families "
+                             f"from text prompts; {cfg.name} is "
+                             f"{cfg.family!r}")
         self.run = run or RunConfig(arch=cfg.name, attn_impl="flash",
                                     remat="none")
         check_attn_impl(self.run.attn_impl)
@@ -99,15 +110,22 @@ class Server:
     def step_epoch(self) -> List[Completion]:
         """Serve one static batch from the queue. Shorter prompts are
         right-padded with token 0 and decoding starts after the longest
-        one, as in the reference."""
+        one, as in the reference. An SSM's padded prompt length must be a
+        multiple of its scan chunk, as the reference asserts (else
+        ``ValueError``, the batch left in the queue)."""
         if not self.queue:
             return []
         batch_reqs = self.queue[:self.batch]
+        S = max(r.prompt.shape[0] for r in batch_reqs)
+        ssm = self.cfg.ssm
+        if self.cfg.family == "ssm" and S % ssm.chunk_size:
+            raise ValueError(f"{self.cfg.name} prefills whole scan chunks: "
+                             f"prompt length {S} is not a multiple of "
+                             f"{ssm.chunk_size}")
         self.queue = self.queue[self.batch:]
         # re-evaluate placement each epoch (overlay lever)
         self.site = pick_site(self.cluster, self.now)
 
-        S = max(r.prompt.shape[0] for r in batch_reqs)
         n = len(batch_reqs)
         prompts = torch.stack([F.pad(r.prompt.to(torch.int64),
                                      (0, S - r.prompt.shape[0]))

@@ -19,7 +19,8 @@ from repro_torch.optim.schedule import lr_schedule
 def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
     """``train_step(model, opt, batch) -> metrics``: the loss and its
     gradients with respect to every parameter of ``model`` (averaged over
-    ``run.microbatch`` equal slices of the batch when it is > 1), then one
+    ``run.microbatch`` equal slices of every batch entry, an ``encdec``'s
+    frames or a ``vlm``'s patches too, when it is > 1), then one
     AdamW step that updates ``model``'s parameters and ``opt`` in place.
     The metrics are {"loss", "lr", "grad_norm", "clip_scale"} (and "nll",
     "aux" without microbatching), tensors on the model's device except

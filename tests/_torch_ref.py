@@ -236,6 +236,184 @@ def assert_same_decisions(got, want, rel: float = 1e-4) -> None:
         assert getattr(got, k) == pytest.approx(getattr(want, k), rel=rel)
 
 
+# --- the model families ------------------------------------------------------
+# Logits of the port against the reference's, relative to max |logit|. f32:
+# sum order and XLA-vs-torch transcendental ulps. bf16: the two frameworks
+# round activations to bf16 at different places (XLA fuses elementwise
+# chains in f32, torch rounds after each op), ~2^-9 relative at each of a
+# few dozen points in 4 layers (tests/test_torch_serving.py).
+LOGIT_F32_TOL, LOGIT_BF16_TOL = 1e-4, 2e-2
+
+
+def model_pair(arch: str, dtype: str, layers: int = 4):
+    """The reference's reduced config and ``init_params`` weights (seed 0),
+    and the port's config and the same weights as a state dict on the
+    CPU: ``(cfg_r, params, cfg_t, state)``."""
+    import jax
+    from repro.configs import get_reduced as ref_reduced
+    from repro.models import init_params
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.convert import params_from_jax
+    cfg_r = dataclasses.replace(ref_reduced(arch, layers=layers), dtype=dtype)
+    cfg_t = dataclasses.replace(get_reduced(arch, layers=layers), dtype=dtype)
+    params = init_params(jax.random.PRNGKey(0), cfg_r)
+    state = params_from_jax(jax.tree.map(np.asarray, params), cfg_t,
+                            device="cpu")
+    return cfg_r, params, cfg_t, state
+
+
+def logit_rel(got, want) -> float:
+    """max |got - want| / max |want|, either side numpy, jax or torch."""
+    g = np.asarray(got, np.float32)
+    w = np.asarray(want, np.float32)
+    return float(np.abs(g - w).max() / np.abs(w).max())
+
+
+def frontend_arrays(cfg, batch: int, seq_len: int, seed: int) -> dict:
+    """An ``encdec``'s frames [B, S//4, d] or a ``vlm``'s patches [B, P, d]
+    as f32 numpy normals times 0.02 (the reference's make_batch scale)."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        n = seq_len // 4
+        return {"frames": (rng.standard_normal((batch, n, cfg.d_model))
+                           * 0.02).astype(np.float32)}
+    if cfg.family == "vlm":
+        n = cfg.n_frontend_tokens
+        return {"patches": (rng.standard_normal((batch, n, cfg.d_model))
+                            * 0.02).astype(np.float32)}
+    return {}
+
+
+def prefill_both(pair, ref_impl: str, port_impl: str, tokens: np.ndarray,
+                 s_max: int, extra: dict):
+    """The reference's jitted prefill and the port's on the same tokens
+    and frontend arrays: ``(logits_r, cache_r, logits_t, cache_t)``."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro.configs.base import RunConfig as RefRun
+    from repro.models import prefill as ref_prefill
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model as M
+    cfg_r, params, cfg_t, state = pair
+    run_r = RefRun(arch=cfg_r.name, attn_impl=ref_impl, remat="none")
+    run_t = RunConfig(arch=cfg_t.name, attn_impl=port_impl, remat="none")
+    batch = {"tokens": jnp.asarray(tokens, jnp.int32),
+             **{k: jnp.asarray(v) for k, v in extra.items()}}
+    lj, cj = jax.jit(lambda p, b: ref_prefill(p, cfg_r, run_r, b,
+                                              s_max=s_max))(params, batch)
+    model = M.Transformer(cfg_t, state)
+    lt, ct = M.prefill(model, run_t, torch.as_tensor(tokens), s_max,
+                       **{k: torch.as_tensor(v) for k, v in extra.items()})
+    return lj, cj, lt, ct
+
+
+def prefill_decode_errors(pair, ref_impl: str, port_impl: str,
+                          tokens: np.ndarray, n_decode: int,
+                          extra: dict) -> List[float]:
+    """Per step (prefill, then each decode step) the port's relative logit
+    error against the reference's; decode feeds the reference's argmax to
+    both, from position P + S on (P frontend positions of a ``vlm``)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro.configs.base import RunConfig as RefRun
+    from repro.models import decode_step as ref_decode
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model as M
+    cfg_r, params, cfg_t, state = pair
+    start = tokens.shape[1] + (cfg_t.n_frontend_tokens
+                               if "patches" in extra else 0)
+    lj, cj, lt, ct = prefill_both(pair, ref_impl, port_impl, tokens,
+                                  start + n_decode + 2, extra)
+    model = M.Transformer(cfg_t, state)
+    run_r = RefRun(arch=cfg_r.name, attn_impl=ref_impl, remat="none")
+    run_t = RunConfig(arch=cfg_t.name, attn_impl=port_impl, remat="none")
+    dec = jax.jit(lambda p, t, c, cur: ref_decode(p, cfg_r, run_r, t, c,
+                                                  cur))
+    errs = [logit_rel(lt.numpy(), lj)]
+    tok = np.array(jnp.argmax(lj, -1))[:, None]
+    for i in range(n_decode):
+        lj, cj = dec(params, jnp.asarray(tok, jnp.int32), cj,
+                     jnp.asarray(start + i, jnp.int32))
+        lt, ct = M.decode_step(model, run_t, torch.as_tensor(tok), ct,
+                               start + i)
+        errs.append(logit_rel(lt.numpy(), lj))
+        tok = np.array(jnp.argmax(lj, -1))[:, None]
+    return errs
+
+
+def serve_both(pair, prompts: np.ndarray, *, batch: int, max_new: int,
+               ref_impl: str = "pallas") -> list:
+    """Both ``Server`` loops on the same weights and prompts (port on the
+    CPU at ``flash``): per epoch ``(want, got)`` as (rid, tokens, site)
+    lists, until the queue is empty."""
+    import jax.numpy as jnp
+    import torch
+    from repro.configs.base import RunConfig as RefRun
+    from repro.runtime import serve_loop as ref_serve
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.runtime import serve_loop
+    cfg_r, _, cfg_t, state = pair
+    s_max = prompts.shape[1] + max_new
+    ref = ref_serve.Server(cfg_r, RefRun(arch="s", attn_impl=ref_impl,
+                                         remat="none"),
+                           batch=batch, s_max=s_max)
+    port = serve_loop.Server(cfg_t, RunConfig(arch="s", attn_impl="flash",
+                                              remat="none"),
+                             batch=batch, s_max=s_max, device="cpu",
+                             params=state)
+    for i, p in enumerate(prompts):
+        ref.submit(ref_serve.Request(rid=i, prompt=jnp.asarray(p, jnp.int32),
+                                     max_new_tokens=max_new))
+        port.submit(serve_loop.Request(rid=i, prompt=torch.as_tensor(p),
+                                       max_new_tokens=max_new))
+    epochs = []
+    while ref.queue:
+        want, got = ref.step_epoch(), port.step_epoch()
+        assert all(c.emissions_mg > 0 and c.latency_s > 0 for c in got)
+        epochs.append(([(c.rid, c.tokens, c.site) for c in want],
+                       [(c.rid, c.tokens, c.site) for c in got]))
+    assert not port.queue and len(port.completions) == len(prompts)
+    return epochs
+
+
+def loss_and_grads_both(pair, ref_impl: str, port_impl: str, batch: dict,
+                        xent_chunk: int = 0):
+    """``loss_fn`` and the gradient of every parameter under per-layer
+    checkpointing: the reference through ``jax.value_and_grad``, the port
+    through autograd. Returns (loss_r, loss_t, {state key: relative
+    error of the port's gradient against the reference's})."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro.configs.base import RunConfig as RefRun
+    from repro.models import loss_fn as ref_loss
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import params_from_jax
+    cfg_r, params, cfg_t, state = pair
+    run_r = RefRun(arch=cfg_r.name, attn_impl=ref_impl, remat="block")
+    (lj, _), gj = jax.jit(jax.value_and_grad(
+        lambda p: ref_loss(p, cfg_r, run_r,
+                           {k: jnp.asarray(v) for k, v in batch.items()},
+                           xent_chunk=xent_chunk), has_aux=True))(params)
+    model = M.Transformer(cfg_t, {k: v.clone() for k, v in state.items()})
+    model.requires_grad_(True)
+    lt, _ = M.loss_fn(model, RunConfig(arch=cfg_t.name, attn_impl=port_impl,
+                                       remat="block"),
+                      {k: torch.as_tensor(v) for k, v in batch.items()},
+                      xent_chunk=xent_chunk)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(lt, [p for _, p in model.named_parameters()])
+    want = params_from_jax(jax.tree.map(np.asarray, gj), cfg_t, device="cpu")
+    assert set(names) == set(want)
+    errs = {n: float((g.float() - want[n].float()).abs().max()
+                     / want[n].float().abs().max().clamp_min(1e-30))
+            for n, g in zip(names, grads)}
+    return float(lj), float(lt.detach()), errs
+
+
 def run_reference(what: str, out: Path, timeout: float = 240.0
                   ) -> Dict[str, np.ndarray]:
     """Run this file as the reference child process; return its arrays."""

@@ -30,9 +30,11 @@ CASES = {
 
 # edges of the kernel's 128-row q tiles and 64-key kv tiles, on the card
 # only: T not a multiple of 128, T shorter than one tile, window 1, a
-# window past T, gemma3-12b's GQA 16:8 at head_dim 240, and three 64-column
-# chunks of head_dim
+# window past T, gemma3-12b's GQA 16:8 at head_dim 240, three 64-column
+# chunks of head_dim, and internvl2-1b's prefill (GQA 14:2, a group of 7,
+# at head_dim 64, one chunk)
 EDGES = {
+    "gqa_14to2_d64": (4, 2048, 14, 2, 64, None),
     "t_130": (1, 130, 2, 2, 64, None),
     "t_40_gqa": (2, 40, 2, 1, 32, None),
     "window_1": (1, 200, 2, 2, 64, 1),
@@ -145,12 +147,14 @@ def test_flash_gradients_match_jax_grad(name):
 
 # --- the tolerance chip_smoke.py holds the CUDA kernel to --------------------
 
-def _kernel_arithmetic(q, k, v, window, *, split_p=True, bf16_acc=False,
-                       block=64):
+def _kernel_arithmetic(q, k, v, window, *, causal=True, mask_length=True,
+                       split_p=True, bf16_acc=False, block=64):
     """The CUDA kernel's arithmetic in torch ([B, H, T, d], one kv head
     per q head), as one consumer warpgroup runs it: S = Q K^T over 64-key
-    tiles in f32 (wgmma accumulates in f32), scaled to log2 units and
-    masked, online softmax with ``exp2``, the accumulator rescaled by the
+    tiles in f32 (wgmma accumulates in f32), the keys past T zero-filled as
+    TMA fills them, scaled to log2 units and masked (by the true length,
+    or not with ``mask_length=False``: the reference's Pallas padding
+    fault), online softmax with ``exp2``, the accumulator rescaled by the
     correction and then P V added as two products, P's bf16 high part and
     its bf16 remainder (``split_p``), or as one bf16 product (the usual
     flash design); the accumulator optionally kept in bf16; O / l rounded
@@ -158,17 +162,21 @@ def _kernel_arithmetic(q, k, v, window, *, split_p=True, bf16_acc=False,
     def bf(x):
         return x.to(torch.bfloat16).float()
     B, H, T, d = q.shape
+    pad = -T % block
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (k, v))
     scale_log2 = torch.tensor(1.0 / math.sqrt(d)
                               * 1.4426950408889634).float()
     i = torch.arange(T)[:, None]
-    j = torch.arange(T)[None, :]
-    mask = j <= i
+    j = torch.arange(T + pad)[None, :]
+    mask = (j < (T if mask_length else T + pad)).expand(T, -1)
+    if causal:
+        mask = mask & (j <= i)
     if window is not None:
-        mask &= (i - j) < window
+        mask = mask & ((i - j) < window)
     m = torch.full((B, H, T), -math.inf)
     l = torch.zeros(B, H, T)
     acc = torch.zeros(B, H, T, d)
-    for k0 in range(0, T, block):
+    for k0 in range(0, T + pad, block):
         s = (q @ k[:, :, k0:k0 + block].transpose(-1, -2)) * scale_log2
         s = s.masked_fill(~mask[:, k0:k0 + block], -math.inf)
         m_new = torch.maximum(m, s.amax(-1))
@@ -211,6 +219,33 @@ def test_chip_tolerance_passes_the_kernel_arithmetic_and_fails_faults():
     assert rel_rms(_kernel_arithmetic(q, k, v, window, split_p=False)) > tol
     assert rel_rms(_kernel_arithmetic(q, k, v, window, bf16_acc=True)) > tol
     assert rel_rms(_kernel_arithmetic(q, k, v, None)) > tol
+
+
+def test_chip_tolerance_holds_non_causal_ragged_at_head_dim_64():
+    """The same bound at seamless-m4t-medium's encoder (non-causal,
+    head_dim 64) over a ragged 500 keys, 12 short of a whole tile: the
+    kernel's arithmetic stays inside it; attending the zero-filled keys
+    past T (the reference Pallas kernel's padding fault), P rounded to one
+    bf16, or an accumulator in bf16 break it."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.tensor(rng.standard_normal((1, 4, 500, 64)),
+                            dtype=torch.float32)
+               .to(torch.bfloat16).float() for _ in range(3))
+    plain = fa.flash_attention_plain(
+        *(x.transpose(1, 2) for x in (q, k, v)), causal=False
+    ).transpose(1, 2).to(torch.bfloat16).float()
+
+    def rel_rms(**kw):
+        got = _kernel_arithmetic(q, k, v, None, causal=False, **kw)
+        return float((got - plain).norm() / plain.norm())
+
+    tol = chip_smoke.FLASH_REL_RMS_TOL
+    assert rel_rms() < tol / 3
+    assert rel_rms(mask_length=False) > tol
+    assert rel_rms(split_p=False) > tol
+    assert rel_rms(bf16_acc=True) > tol
 
 
 # --- on the card --------------------------------------------------------------
@@ -262,6 +297,29 @@ def test_kernel_non_causal_and_shorter_queries_on_the_card(window):
         err = chip_smoke.flash_errors(got, want)
         assert err["rel_rms_err"] <= chip_smoke.FLASH_REL_RMS_TOL, (T, S, err)
         assert err["max_abs_err"] <= err["max_abs_tol"], (T, S, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [512, 500], ids=["t_512", "ragged_500"])
+def test_kernel_non_causal_head_dim_64_on_the_card(T):
+    """seamless-m4t-medium's encoder attention: 4 x T frames, 16 heads of
+    64, non-causal; at T = 500 the last kv tile is masked by the true
+    length, not attended as zero keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    q, k, v = (x.cuda() for x in _inputs((4, T, 16, 16, 64, None),
+                                         torch.bfloat16, seed=T))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    err = chip_smoke.flash_errors(got, want)
+    assert err["rel_rms_err"] <= chip_smoke.FLASH_REL_RMS_TOL, err
+    assert err["max_abs_err"] <= err["max_abs_tol"], err
+
 
 def test_ptxas_usage_reads_each_kernel_instance():
     """``chip_smoke.ptxas_usage`` picks the registers, spills and static

@@ -40,10 +40,13 @@ CASES = {
     "mamba2": (1, 512, 2, 64, 128, 256),
 }
 # edges of the kernel's passes, on the card only: one chunk of 64 (the
-# smallest chunk, batch 1, an odd head count), two chunks at batch 1
+# smallest chunk, batch 1, an odd head count), two chunks at batch 1; and
+# mamba2-370m's serving prefill (4 x 2048 tokens, 32 heads), whose final
+# state becomes the decode state
 EDGES = {
     "one_chunk_64": (1, 64, 3, 16, 16, 64),
     "two_chunks_b1": (1, 128, 2, 32, 32, 64),
+    "mamba2_serving_b4": (4, 2048, 32, 64, 128, 256),
 }
 F32_REL = 1e-5
 BF16_REL_RMS = 1e-3
@@ -271,7 +274,9 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
 def test_mamba_block_matches_reference(use_kernel):
     """The block on reduced mamba2 (d_model 64, d_state 16, head_dim 16,
     chunk 32) in f32, the reference's weights: the kernel path against
-    the reference's Pallas path, the chunked one against its jnp path."""
+    the reference's Pallas path, the chunked one against its jnp path;
+    then one decode step from a state (the recurrence, whichever path)
+    against the reference's, output and new state."""
     import jax
     import jax.numpy as jnp
     from repro.configs import get_reduced as ref_reduced
@@ -293,8 +298,27 @@ def test_mamba_block_matches_reference(use_kernel):
                                  use_kernel=use_kernel)
     assert state is None
     _assert_close(got.numpy(), want, torch.float32)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        ssm.mamba_block(p, torch.tensor(x), cfg_t.ssm, state=object())
+    # the decode branch: one token from a rolling conv window and a state
+    from repro.models.ssm import SSMState as RefState
+    rng = np.random.default_rng(4)
+    s = cfg_t.ssm
+    conv_ch = s.d_inner(64) + 2 * s.n_groups * s.d_state
+    conv = rng.standard_normal((1, s.conv_width - 1, conv_ch)).astype(
+        np.float32)
+    h = rng.standard_normal((1, s.n_heads(64), s.headdim,
+                             s.d_state)).astype(np.float32)
+    x1 = rng.standard_normal((1, 1, 64)).astype(np.float32)
+    want1, st_r = ref_block(p_ref, jnp.asarray(x1), cfg_r.ssm,
+                            state=RefState(conv=jnp.asarray(conv),
+                                           h=jnp.asarray(h)),
+                            use_kernel=use_kernel)
+    got1, st_t = ssm.mamba_block(p, torch.tensor(x1), cfg_t.ssm,
+                                 state=ssm.SSMState(conv=torch.tensor(conv),
+                                                    h=torch.tensor(h)),
+                                 use_kernel=use_kernel)
+    _assert_close(got1.numpy(), want1, torch.float32)
+    _assert_close(st_t.conv.numpy(), st_r.conv, torch.float32)
+    _assert_close(st_t.h.numpy(), st_r.h, torch.float32)
 
 
 # --- on the card ---------------------------------------------------------------
