@@ -62,7 +62,19 @@ and drives the port's paths:
   its plain version, ``Server`` answering 8 text-only requests, prefill
   with 256 patch embeddings and 1792 text tokens and 31 decode steps
   (cached logits against a plain full forward), and one train step, as
-  seamless's.
+  seamless's;
+* the moe and hybrid families at full width, depth cut to one card
+  (phases 14-16): jamba-v0.1-52b at 16 layers (two 8-layer periods of
+  seven Mamba-2 layers, d_state 16 and 128 heads, and one NoPE attention
+  layer, 32 query heads over 8 of 128; 16 experts top-2 on every other
+  layer), arctic-480b at 2 layers (56 heads over 8 of 128; 128 experts
+  top-2 beside a dense residual FFN) and kimi-k2 at 1 layer (64 heads
+  over 8 of 112; 384 experts top-8 and a shared expert): the flash
+  kernel (and jamba's SSD kernel) against its plain version at each
+  model's prefill shapes, ``Server`` answering 8 (jamba) or 4 requests of
+  2048-token prompts with 32 new tokens, a profile of one prefill and
+  three decode steps, and the MoE logit gate (see MOE_PHASES), which
+  prints each MoE layer's dropped assignments and top-k flips.
 
 Every phase that fails raises, so the exit code is non-zero; without a
 CUDA device the script exits 2 and prints no result. Each phase prints its
@@ -1399,15 +1411,16 @@ class ServeProbe:
         return sum(a.elapsed_time(b) for a, b in epoch["flash"])
 
 
-def serve(fa, sl, cfg, run, power_w: float, kernel=None,
-          kernel_name: str = "flash"):
-    """The serving main path: ``Server`` answers N_REQUESTS requests in
-    static batches on the card; returns the server, the probe and the
-    launches of ``kernel`` (a wrapper with a ``launches`` count; the
-    flash kernel's unless given) counted over the path, one per layer
-    and prefill."""
+def serve(fa, sl, cfg, run, power_w: float, kernels=None,
+          n_requests: int = N_REQUESTS):
+    """The serving main path: ``Server`` answers ``n_requests`` requests
+    in static batches on the card; returns the server, the probe and the
+    launches over the path of each of ``kernels`` ({name: (a wrapper with
+    a ``launches`` count, launches a prefill)}; the flash kernel's, one
+    per layer, unless given)."""
     from repro_torch.models.params import count_params
-    kernel = kernel or fa.flash_attention
+    kernels = kernels or {"flash": (fa.flash_attention, cfg.n_layers)}
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     srv = sl.Server(cfg, run, batch=SERVE_BATCH, s_max=S_MAX, chip_count=1,
                     chip_power_w=power_w, device=DEVICE)
@@ -1422,21 +1435,23 @@ def serve(fa, sl, cfg, run, power_w: float, kernel=None,
         "weights_gb": sum(p.numel() * p.element_size()
                           for p in srv.model.parameters()) / 1e9,
         "init_s": time.perf_counter() - t0, "site": srv.site,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "chip_power_w": power_w}})
     if n_params != count_params(cfg) \
             or len(srv.model.decoder.layers) != cfg.n_layers:
         raise RuntimeError(f"the served model is not {cfg.name} at full "
                            f"size")
     prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (N_REQUESTS, PROMPT_LEN))
-    for i in range(N_REQUESTS):
+        0, cfg.vocab_size, (n_requests, PROMPT_LEN))
+    for i in range(n_requests):
         srv.submit(sl.Request(rid=i, prompt=torch.as_tensor(prompts[i]),
                               max_new_tokens=MAX_NEW))
     sites = set(srv.cluster.sites)
-    kernel.launches = 0
+    for fn, _ in kernels.values():
+        fn.launches = 0
     with ServeProbe(sl, fa) as probe:
         while srv.queue:
-            before = kernel.launches
+            before = {n: fn.launches for n, (fn, _) in kernels.items()}
             done = srv.step_epoch()
             ep = probe.epochs[-1]
             if len(done) != SERVE_BATCH or any(
@@ -1461,20 +1476,23 @@ def serve(fa, sl, cfg, run, power_w: float, kernel=None,
                   "gen_tokens_per_s": SERVE_BATCH * MAX_NEW / lat,
                   "prompt_tokens_per_s": SERVE_BATCH * PROMPT_LEN / pre,
                   "mg_co2_per_request": done[0].emissions_mg,
-                  f"{kernel_name}_launches": kernel.launches - before,
+                  **{f"{n}_launches": fn.launches - before[n]
+                     for n, (fn, _) in kernels.items()},
                   "flash_ms_in_prefill": flash_ms,
                   "flash_share_of_prefill": flash_ms / 1e3 / pre})
-    launches = kernel.launches
+    launches = {n: fn.launches for n, (fn, _) in kernels.items()}
     n_prefill = len(probe.epochs)
     lat = sum(c.latency_s for c in srv.completions) / SERVE_BATCH
     emit({"serve_main_path": {
         "arch": cfg.name, "requests": len(srv.completions),
-        "prefills": n_prefill, f"{kernel_name}_launches": launches,
+        "prefills": n_prefill,
+        **{f"{n}_launches": v for n, v in launches.items()},
         "gen_tokens_per_s": len(srv.completions) * MAX_NEW / lat,
         "wall_s": lat}})
-    if launches != cfg.n_layers * n_prefill:
-        raise RuntimeError(f"{kernel_name} launches {launches} != "
-                           f"{cfg.n_layers} layers x {n_prefill} prefills")
+    for n, (_, per) in kernels.items():
+        if launches[n] != per * n_prefill:
+            raise RuntimeError(f"{n} launches {launches[n]} != {per} a "
+                               f"prefill x {n_prefill} prefills")
     return srv, probe, launches
 
 
@@ -1953,8 +1971,9 @@ def ssm_serving(ssd, fa, sl, M, cfg, run, power_w: float, usage) -> tuple:
     SSM_FULL_CHUNK. Returns the SSD check and the launches over the
     serving path."""
     case = check_ssd(ssd, cfg, usage, batch=SERVE_BATCH)
-    srv, probe, launches = serve(fa, sl, cfg, run, power_w,
-                                 kernel=ssd.ssd_scan, kernel_name="ssd")
+    srv, probe, launches = serve(
+        fa, sl, cfg, run, power_w,
+        kernels={"ssd": (ssd.ssd_scan, cfg.n_layers)})
     full_cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
         cfg.ssm, chunk_size=SSM_FULL_CHUNK))
     full = M.Transformer(full_cfg, dict(srv.model.state_dict()))
@@ -1966,7 +1985,7 @@ def ssm_serving(ssd, fa, sl, M, cfg, run, power_w: float, usage) -> tuple:
     emit({"ssm_profile": profile_serving(M, srv, ep["tokens"])})
     del srv, probe, full, ep
     torch.cuda.empty_cache()
-    return case, launches
+    return case, launches["ssd"]
 
 
 def family_batches(M, cfg) -> tuple:
@@ -2019,6 +2038,354 @@ def family_paths(fa, M, adamw, cfg, run, label: str) -> dict:
         raise RuntimeError(f"{label}: flash launches {launches} != "
                            f"{per_forward} a prefill")
     return launches
+
+
+# --- 14-16: the moe and hybrid families served ------------------------------
+#
+# The MoE logit gate. Routing makes a plain full forward unlike the cached
+# path it checks: an expert's capacity depends on the dispatch's token
+# count T and an assignment's rank on its flat position, so the full
+# forward over prompt and decoded tokens (T = 4 x 2080) drops other
+# assignments than the prefill (4 x 2048) and the decode steps (T = 4,
+# capacity 8, no drops); and bf16 noise between the kernel path and the
+# plain path can flip a near-tied top-k choice, which moves one token's
+# output by O(1). The reference's own cached decode and full forward
+# differ in the same way (tests/test_torch_moe_models.py). So the gate
+# has a plain MoE of its own (router probabilities of its own, capacity
+# from its formula written out again, ranks by a running count in flat
+# order, one expert at a time, the dropped assignments weighted 0) and
+# uses it twice:
+# * every MoE call of the cached path (each layer, prefill and each
+#   decode step) again, on that call's own input: the same top-k choices
+#   (the router is the same f32 product), the same capacity and kept
+#   assignments, exactly, and each token's output within MOE_LAYER_TOL;
+# * in the plain full forward and the plain prefill, which route in the
+#   cached path's groups (the prompt together, then each decode position
+#   alone) and replay the cached path's choices: logits within
+#   LOGIT_TOL_REL with the off-by-one control above it, as logit_gate,
+#   and every replayed choice within MOE_TIE_TOL router logits of the
+#   plain router's own k-th (a flip is a near tie; a wrong expert is not).
+# tests/test_torch_moe_models.py runs it on reduced models: it fails an
+# unstable sort, a combine that ignores the drops and a capacity off by 8,
+# and passes the plain path against itself with its hidden state rounded
+# once to bf16.
+
+# (phase, label, arch, layers kept, requests): depth cut only as far as
+# one 80 GB card forces (jamba: two 8-layer periods, 52 GB of bf16
+# weights; arctic 2 layers, 55 GB; kimi 1 layer, 39 GB); widths, experts,
+# top-k, capacity factor and interleave are the published configs'
+MOE_PHASES = (("14", "jamba", "jamba-v0.1-52b", 16, 8),
+              ("15", "arctic", "arctic-480b", 2, SERVE_BATCH),
+              ("16", "kimi", "kimi-k2-1t-a32b", 1, SERVE_BATCH))
+# Router logits at init are ~N(0, 1) (rms-normed input, weights at
+# d_model^-1/2); a replayed choice that the plain router ranks more than
+# this below its own k-th is not bf16 noise but a wrong expert.
+MOE_TIE_TOL = 0.25
+# One MoE call, kernel path against the plain MoE on the same input and
+# choices: max over tokens of |y - y_plain| over the mean token norm. The
+# two round to bf16 at the same steps and differ only by GEMM sum order
+# (the capacity buffer's bmm against one expert's rows), a bf16 ulp
+# (2^-8 relative) here and there. A dropped assignment combined, a lost
+# choice or a wrong expert moves a token by its router weight times an
+# expert's output.
+MOE_LAYER_TOL = 2e-2
+
+
+class MoERecorder:
+    """Keeps every call of the port's MoE layer (``transformer.moe_ffn``)
+    in call order: its weights, input and output, and what its dispatch
+    saw and decided (top-k choices [T, k], kept assignments [T*k],
+    capacity)."""
+
+    def __init__(self, moe, transformer):
+        self.moe, self.T, self.calls = moe, transformer, []
+
+    def __enter__(self):
+        self.orig = (self.moe.dispatch_indices, self.T.moe_ffn)
+        dispatch, layer = self.orig
+
+        def recorded_dispatch(top_i, n_experts, cap):
+            e_flat, slot, keep = dispatch(top_i, n_experts, cap)
+            self.calls[-1].update(top_i=top_i, keep=keep, cap=cap)
+            return e_flat, slot, keep
+
+        def recorded_layer(p, x, cfg, **kw):
+            self.calls.append({"p": p, "x": x, "kw": kw})
+            y, aux = layer(p, x, cfg, **kw)
+            self.calls[-1]["y"] = y
+            return y, aux
+
+        self.moe.dispatch_indices = recorded_dispatch
+        self.T.moe_ffn = recorded_layer
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch_indices, self.T.moe_ffn = self.orig
+
+
+def plain_capacity(n_tokens: int, cfg) -> int:
+    """ceil(T * k / E * capacity_factor), then up to a multiple of 8, at
+    least 8 (the reference's formula, written out again)."""
+    c = math.ceil(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+    return max(8, 8 * math.ceil(c / 8))
+
+
+def _plain_ffn(x, wg, wu, wd, gated: bool):
+    if gated:
+        h = torch.nn.functional.silu(x @ wg.to(x.dtype)) * (x @ wu.to(x.dtype))
+    else:
+        h = torch.nn.functional.gelu(x @ wu.to(x.dtype), approximate="tanh")
+    return h @ wd.to(x.dtype)
+
+
+def _moe_stats() -> dict:
+    return {"tokens": 0, "drops": 0, "flips": 0, "tie_gap": 0.0,
+            "cap_mismatch": 0, "keep_mismatch": 0}
+
+
+def plain_moe_group(p, xs, cfg, gated: bool, rec, st: dict):
+    """The plain MoE over one dispatch group xs [B, n, d]: with ``rec`` (a
+    :class:`MoERecorder` call) its top-k choices, else the group's own.
+    Adds the group's flips, drops and disagreements with ``rec`` to
+    ``st``."""
+    B, n, d = xs.shape
+    T, k, E = B * n, cfg.top_k, cfg.n_experts
+    xt = xs.reshape(T, d)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        logits = xt.float() @ p["router"].float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    probs = torch.softmax(logits, dim=-1)
+    own = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
+    top_i = own if rec is None else rec["top_i"]
+    if rec is not None:
+        st["flips"] += int((own.sort(-1)[0] != top_i.sort(-1)[0])
+                           .any(-1).sum())
+        kth = logits.gather(1, own[:, -1:])
+        st["tie_gap"] = max(st["tie_gap"], float(
+            (kth - logits.gather(1, top_i)).clamp_min(0).max()))
+    st["tokens"] += T
+    top_p = probs.gather(1, top_i)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = plain_capacity(T, cfg)
+    e_flat = top_i.reshape(-1)
+    onehot = torch.nn.functional.one_hot(e_flat, E)
+    rank = (onehot.cumsum(0) * onehot).sum(1) - 1
+    keep = rank < cap
+    st["drops"] += int((~keep).sum())
+    if rec is not None:
+        st["cap_mismatch"] += int(rec["cap"] != cap)
+        st["keep_mismatch"] += int((keep != rec["keep"]).sum())
+    w = top_p.reshape(-1) * keep
+    y = torch.zeros((T * k, d), dtype=torch.float32, device=xt.device)
+    e_cpu, keep_cpu = e_flat.cpu(), keep.cpu()
+    for e in torch.unique(e_cpu[keep_cpu]).tolist():
+        sel = torch.nonzero((e_cpu == e) & keep_cpu)[:, 0].to(xt.device)
+        out = _plain_ffn(xt[sel // k], p.get("wg", p["wu"])[e], p["wu"][e],
+                         p["wd"][e], gated)
+        y[sel] = out.float() * w[sel, None]
+    y = y.reshape(T, k, d).sum(1).to(xs.dtype)
+    for pre, on in (("shared", cfg.n_shared_experts), ("dense",
+                                                        cfg.dense_residual)):
+        if on:
+            y = y + _plain_ffn(xt, p.get(f"{pre}_wg"), p[f"{pre}_wu"],
+                               p[f"{pre}_wd"], gated)
+    return y.reshape(B, n, d)
+
+
+def moe_layer_check(calls, cfg) -> dict:
+    """Every recorded MoE call against the plain MoE on its own input and
+    choices (see MOE_LAYER_TOL)."""
+    st, err = _moe_stats(), 0.0
+    for c in calls:
+        y = plain_moe_group(c["p"], c["x"], cfg, c["kw"].get("gated", True),
+                            c, st).float()
+        d = y.shape[-1]
+        gap = (c["y"].float() - y).reshape(-1, d).norm(dim=1)
+        err = max(err, float(gap.max() / y.reshape(-1, d).norm(dim=1)
+                             .mean().clamp_min(1e-30)))
+    return {"layer_err": err, **{f"layer_{k}": v for k, v in st.items()}}
+
+
+class MoEReplay:
+    """Stands in for the port's ``moe_ffn`` in the gate's plain passes:
+    MoE layer j of a forward over [B, L, d] routes positions [0, P) as
+    one group with the cached prefill's choices for layer j, and each
+    later position P + i alone with decode step i's (its own choices past
+    the recorded steps). ``routes`` are the cached path's MoE calls in
+    order (prefill: each MoE layer, then each decode step: each layer)."""
+
+    def __init__(self, routes, n_moe: int, prompt_len: int):
+        self.steps = [routes[j::n_moe] for j in range(n_moe)]
+        self.n_moe, self.P = n_moe, prompt_len
+        self.take_stats()
+
+    def take_stats(self) -> list:
+        """Each MoE layer's statistics since the last call; restarts the
+        layer count."""
+        out = getattr(self, "stats", None)
+        self.calls = 0
+        self.stats = [_moe_stats() for _ in range(self.n_moe)]
+        return out
+
+    def __call__(self, p, x, cfg, *, gated: bool = True):
+        j = self.calls % self.n_moe
+        self.calls += 1
+        recs, L = self.steps[j], x.shape[1]
+        groups = [(0, min(L, self.P), recs[0])] + [
+            (self.P + i, self.P + i + 1,
+             recs[1 + i] if 1 + i < len(recs) else None)
+            for i in range(L - self.P)]
+        y = torch.cat([plain_moe_group(p, x[:, a:b], cfg, gated, rec,
+                                       self.stats[j])
+                       for a, b, rec in groups], dim=1)
+        return y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def moe_logit_gate(M, model, run, tokens, fed, *, full_model=None,
+                   label: str = "moe_logit_check") -> dict:
+    """The MoE variant of :func:`logit_gate` (see above MOE_PHASES): the
+    cached path (``prefill``, then a ``decode_step`` for each token of
+    ``fed`` [B, n]) with its MoE calls recorded; each call against the
+    plain MoE on its own input; then a plain full forward over prompt and
+    ``fed`` and a plain prefill that replay the recorded choices (naive
+    attention, the chunked scan, :class:`MoEReplay`); the control
+    compares each cached step with the full forward's next position.
+    ``full_model`` (the same weights) runs the full forward."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    cfg = model.cfg.moe
+    n_moe = sum(1 for layer in model.decoder.layers
+                if layer.spec.is_moe and layer.spec.has_ffn)
+    with MoERecorder(moe, T) as rec:
+        logits, timing = cached_steps(M, model, run, tokens, fed)
+    calls = rec.calls
+    if len(calls) != n_moe * len(logits) or any("top_i" not in c
+                                                for c in calls):
+        raise RuntimeError(f"{label}: {len(calls)} MoE calls, not "
+                           f"{n_moe} MoE layers x {len(logits)} steps")
+    layer = moe_layer_check(calls, cfg)
+    naive = dataclasses.replace(run, attn_impl="naive")
+    P = tokens.shape[1]
+    replay = MoEReplay(calls, n_moe, P)
+    real = T.moe_ffn
+    T.moe_ffn = replay
+    try:
+        h = M.forward_hidden(full_model or model, naive,
+                             torch.cat([tokens, fed], dim=1))
+        full = M.unembed(model, h[:, P - 1:P - 1 + len(logits)]).float()
+        del h
+        full_stats = replay.take_stats()
+        plain_prefill, cache = M.prefill(model, naive, tokens, S_MAX)
+        del cache
+        prefill_stats = replay.take_stats()
+    finally:
+        T.moe_ffn = real
+    cached = torch.stack(logits, dim=1)
+    by_layer = [calls[j::n_moe] for j in range(n_moe)]
+    both = prefill_stats + full_stats
+    res = {"positions": int(full.shape[1]), **timing,
+           "finite": bool(torch.isfinite(cached).all()
+                          and torch.isfinite(full).all()),
+           "max_abs_logit": float(full.abs().max()),
+           "cached_vs_full_rel": rel_err(cached, full),
+           "cached_vs_full_prefill_pos_rel": rel_err(cached[:, 0],
+                                                     full[:, 0]),
+           "control_off_by_one_rel": rel_err(cached[:, 1:], full[:, :-1]),
+           "flash_vs_naive_prefill_rel": rel_err(logits[0], plain_prefill),
+           "argmax_agree_cached_full": float(
+               (cached.argmax(-1) == full.argmax(-1)).float().mean()),
+           "tol_rel": LOGIT_TOL_REL, **layer, "layer_tol": MOE_LAYER_TOL,
+           "prefill_assignments": int(by_layer[0][0]["keep"].numel()),
+           "prefill_capacity": by_layer[0][0]["cap"],
+           "prefill_drops_by_layer": [int((~c[0]["keep"]).sum())
+                                      for c in by_layer],
+           "decode_drops": sum(int((~s["keep"]).sum())
+                               for c in by_layer for s in c[1:]),
+           "prefill_flips_by_layer": [s["flips"] for s in prefill_stats],
+           "full_flips_by_layer": [s["flips"] for s in full_stats],
+           "tie_gap_max": max(s["tie_gap"] for s in both),
+           "tie_tol": MOE_TIE_TOL,
+           "cap_mismatch": sum(s["cap_mismatch"] for s in both),
+           "keep_mismatch": sum(s["keep_mismatch"] for s in both)}
+    emit({label: res})
+    del calls, rec
+    if not (res["finite"]
+            and res["cached_vs_full_rel"] <= LOGIT_TOL_REL
+            and res["flash_vs_naive_prefill_rel"] <= LOGIT_TOL_REL
+            and res["control_off_by_one_rel"] > LOGIT_TOL_REL
+            and res["layer_err"] <= MOE_LAYER_TOL
+            and res["layer_flips"] == 0
+            and res["layer_cap_mismatch"] == res["cap_mismatch"] == 0
+            and res["layer_keep_mismatch"] == res["keep_mismatch"] == 0
+            and res["tie_gap_max"] <= MOE_TIE_TOL):
+        raise RuntimeError(f"{label} failed: {res}")
+    return res
+
+
+def moe_serving(fa, ssd, sl, M, cfg, run, power_w: float, label: str,
+                n_requests: int) -> dict:
+    """A moe or hybrid model served: ``Server`` answers ``n_requests``
+    requests (flash in every attention layer's prefill, the SSD kernel in
+    every Mamba-2 layer's), a profile of one prefill and three decode
+    steps, then :func:`moe_logit_gate` on the first epoch's prompts and
+    MAX_NEW - 1 seeded random tokens (a hybrid: MAX_NEW, so that its full
+    forward, 2080 = 65 x SSM_FULL_CHUNK positions, scans whole chunks).
+    Returns each kernel's launches over the serving path."""
+    from repro_torch.models.kvcache import layer_specs
+    specs = layer_specs(cfg)
+    n_attn = sum(s.mixer == "attn" for s in specs)
+    kernels = {"flash": (fa.flash_attention, n_attn)}
+    if n_attn < len(specs):
+        kernels["ssd"] = (ssd.ssd_scan, len(specs) - n_attn)
+    srv, probe, launches = serve(fa, sl, cfg, run, power_w, kernels=kernels,
+                                 n_requests=n_requests)
+    tokens = probe.epochs[0]["tokens"]
+    emit({f"{label}_profile": profile_serving(M, srv, tokens)})
+    hybrid = cfg.ssm is not None
+    fed = torch.randint(0, cfg.vocab_size,
+                        (SERVE_BATCH, MAX_NEW - (0 if hybrid else 1)),
+                        generator=torch.Generator().manual_seed(SEED)
+                        ).to(DEVICE)
+    full = None
+    if hybrid:
+        full = M.Transformer(dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk_size=SSM_FULL_CHUNK)), dict(srv.model.state_dict()))
+    moe_logit_gate(M, srv.model, srv.run, tokens, fed, full_model=full,
+                   label=f"{label}_logit_check")
+    del srv, probe, full
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_phases(fa, ssd, sl, M, built, power_w: float, clock, flash_cases,
+               flash_paths, ssd_cases, ssd_paths) -> None:
+    """Phases 14-16 (MOE_PHASES): for each model the flash kernel (and
+    jamba's SSD kernel) against its plain version at the model's prefill
+    shapes (causal, 4 x PROMPT_LEN), then :func:`moe_serving`. Adds to
+    the kernel cases and the launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    flash_usage = ptxas_usage(built[fa._SOURCE.name][1], FLASH_KERNEL)
+    ssd_usage = ptxas_usage(built[ssd._SOURCE.name][1], SSD_KERNEL_PREFIX)
+    for num, label, arch, layers, n_req in MOE_PHASES:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        name = f"{label}_gqa{cfg.n_heads}to{cfg.n_kv_heads}_d{cfg.head_dim}"
+        flash_cases += check_flash(fa, cfg, flash_usage,
+                                   ((name, PROMPT_LEN, None, True),))
+        if cfg.ssm is not None:
+            ssd_cases[f"serving_{label}_d{cfg.ssm.d_state}"] = check_ssd(
+                ssd, cfg, ssd_usage, batch=SERVE_BATCH)
+        launches = moe_serving(
+            fa, ssd, sl, M, cfg,
+            RunConfig(arch=arch, attn_impl="flash", remat="none", seed=SEED),
+            power_w, label, n_req)
+        flash_paths[f"{num} serve {label}"] = launches["flash"]
+        if "ssd" in launches:
+            ssd_paths[f"{num} serve {label}"] = launches["ssd"]
+        clock.mark(f"{num} {label}")
 
 
 def main() -> int:
@@ -2195,7 +2562,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cuda.matmul.allow_tf32 = False
     run = RunConfig(arch=ARCH, attn_impl="flash", remat="none", seed=SEED)
-    srv, probe, flash_launches = serve(fa, sl, cfg, run, power_limit_w(card))
+    srv, probe, launches = serve(fa, sl, cfg, run, power_limit_w(card))
+    flash_launches = launches["flash"]
 
     # 9. logits: cached path against the plain full forward
     check_logits(M, srv, probe)
@@ -2254,8 +2622,8 @@ def main() -> int:
     flash_cases += check_flash(fa, vcfg, flash_usage, VLM_FLASH_CASES)
     vrun = RunConfig(arch=VLM_ARCH, attn_impl="flash", remat="none",
                      seed=SEED)
-    srv, probe, flash_paths["13 internvl2 serve"] = serve(
-        fa, sl, vcfg, vrun, power_limit_w(card))
+    srv, probe, launches = serve(fa, sl, vcfg, vrun, power_limit_w(card))
+    flash_paths["13 internvl2 serve"] = launches["flash"]
     emit({"internvl2_profile": profile_serving(
         M, srv, probe.epochs[0]["tokens"])})
     del srv, probe
@@ -2265,7 +2633,16 @@ def main() -> int:
         flash_paths[f"13 internvl2 {path}"] = n
     clock.mark("13 internvl2")
 
-    # 14. results
+    # 14-16. the moe and hybrid families served at full width, depth cut
+    # to one card: flash at head_dim 128 and 112, the SSD kernel at
+    # d_state 16 and 128 heads (jamba), then Server and the MoE logit gate
+    ssd_paths = {"10 train mamba2-370m": ssd_launches,
+                 "11 serve mamba2-370m": ssd_serve_launches}
+    ssd_cases = {"training": ssd_case, "serving_b4": ssd_serve_case}
+    moe_phases(fa, ssd, sl, M, built, power_limit_w(card), clock,
+               flash_cases, flash_paths, ssd_cases, ssd_paths)
+
+    # 17. results
     worst = max(flash_cases, key=lambda c: c["rel_rms_err"])
     kernels.append(
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
@@ -2280,13 +2657,11 @@ def main() -> int:
          "cases": {c["case"]: {k: c[k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "max_abs_err", "rel_rms_err")} for c in flash_cases}})
-    ssd_cases = {"training": ssd_case, "serving_b4": ssd_serve_case}
     kernels.append(
         {"name": "ssd_scan", "route": "cuda", "source": SSD_SRC,
          "replaces": "src/repro/kernels/ssd_scan.py:26",
-         "launches": ssd_launches + ssd_serve_launches,
-         "launches_by_path": {"10 train mamba2-370m": ssd_launches,
-                              "11 serve mamba2-370m": ssd_serve_launches},
+         "launches": sum(ssd_paths.values()),
+         "launches_by_path": ssd_paths,
          **{k: max(c[k] for c in ssd_cases.values()) for k in (
              "max_abs_err", "y_rel_rms_err", "h_rel_rms_err")},
          **{k: ssd_case[k] for k in (

@@ -6,8 +6,12 @@ on the port's flash-attention kernel path.
 
 Serves the reduced config unless ``--full`` asks for the real widths and
 depth; runs on ``cuda`` unless ``--device cpu``. Any architecture of a
-family the ``Server`` serves (dense, ssm, vlm text-only); an SSM's prompt
-length defaults to one scan chunk, as its prefill takes whole chunks.
+family the ``Server`` serves (dense, ssm, vlm text-only, moe, hybrid); a
+model with Mamba-2 layers takes prompts of one scan chunk by default, as
+its prefill takes whole chunks. ``--full`` on the card first checks that
+the weights fit the card's free memory, and raises before allocating
+anything if they do not (jamba-v0.1-52b, arctic-480b and kimi-k2 do not
+fit one 80 GB card whole).
 """
 from __future__ import annotations
 
@@ -16,12 +20,26 @@ import sys
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.configs import ARCHS, get_config, get_reduced
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models.params import count_params, torch_dtype
 from repro_torch.runtime.serve_loop import SERVED_FAMILIES, Request, Server
 
 SERVED_ARCHS = tuple(a for a in ARCHS
                      if get_config(a).family in SERVED_FAMILIES)
+
+
+def check_fits(cfg: ModelConfig, device: torch.device) -> None:
+    """Raise ``MemoryError`` if ``cfg``'s weights exceed the free memory
+    of ``device`` (a CUDA device; the CPU is not checked)."""
+    if device.type != "cuda":
+        return
+    need = count_params(cfg) * torch_dtype(cfg.dtype).itemsize
+    free, _ = torch.cuda.mem_get_info(device)
+    if need > free:
+        raise MemoryError(f"{cfg.name}'s {cfg.dtype} weights take {need:,} "
+                          f"bytes; {device} has {free:,} bytes free")
 
 
 def main(argv=None) -> int:
@@ -38,11 +56,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
-    prompt_len = args.prompt_len or (cfg.ssm.chunk_size
-                                     if cfg.family == "ssm" else 32)
+    prompt_len = args.prompt_len or (
+        cfg.ssm.chunk_size if cfg.family in ("ssm", "hybrid") else 32)
+    device = resolve_device(args.device)
+    check_fits(cfg, device)
     run = RunConfig(arch=args.arch, attn_impl="flash", remat="none")
     srv = Server(cfg, run, batch=args.batch,
-                 s_max=prompt_len + args.max_new, device=args.device)
+                 s_max=prompt_len + args.max_new, device=device)
     print(f"serving {args.arch} ({'full' if args.full else 'reduced'}) "
           f"on {srv.device} at {srv.site}")
     # token ids as make_batch draws them (the reference's range)

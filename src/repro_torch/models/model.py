@@ -124,21 +124,24 @@ def chunked_xent(model: Transformer, x: torch.Tensor, targets: torch.Tensor,
 def loss_fn(model: Transformer, run: RunConfig,
             batch: Mapping[str, torch.Tensor], *, xent_chunk: int = 2048
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy (no MoE auxiliary loss: MoE comes
-    with a later slice). An ``encdec`` batch carries ``frames`` for the
-    encoder; a ``vlm`` batch carries ``patches``, whose positions are not
-    scored. Returns (loss, {"nll", "aux"})."""
+    """Mean next-token cross-entropy, plus ``aux_loss_weight`` times the
+    MoE auxiliary loss (summed over the MoE layers) for a model with
+    experts. An ``encdec`` batch carries ``frames`` for the encoder; a
+    ``vlm`` batch carries ``patches``, whose positions are not scored.
+    Returns (loss, {"nll", "aux"}), both detached."""
     check_attn_impl(run.attn_impl)
     enc_out = encode(model, run, batch.get("frames"))
-    x = model.decoder(embed(model, batch["tokens"], batch.get("patches")),
-                      run, mode="train", enc_out=enc_out)
+    x, aux = model.decoder(embed(model, batch["tokens"],
+                                 batch.get("patches")),
+                           run, mode="train", enc_out=enc_out)
     if model.cfg.family == "vlm":
         x = x[:, model.cfg.n_frontend_tokens:, :]
     nll_sum, denom = chunked_xent(model, x, batch["targets"], xent_chunk)
-    loss = nll_sum / denom
-    return loss, {"nll": loss.detach(),
-                  "aux": torch.zeros((), dtype=torch.float32,
-                                     device=loss.device)}
+    nll = nll_sum / denom
+    loss = nll
+    if model.cfg.moe is not None:
+        loss = loss + model.cfg.moe.aux_loss_weight * aux
+    return loss, {"nll": nll.detach(), "aux": aux.detach()}
 
 
 # ------------------------------------------------------------- serving -----
@@ -155,8 +158,8 @@ def prefill(model: Transformer, run: RunConfig, tokens: torch.Tensor,
     cache = KC.zero_cache(model.cfg, tokens.shape[0], s_max,
                           0 if enc_out is None else enc_out.shape[1],
                           device=tokens.device)
-    x = model.decoder(embed(model, tokens, patches), run, mode="prefill",
-                      cache=cache, enc_out=enc_out)
+    x, _ = model.decoder(embed(model, tokens, patches), run, mode="prefill",
+                         cache=cache, enc_out=enc_out)
     logits = unembed(model, x[:, -1:, :])[:, 0]
     return logits.float(), cache
 
@@ -167,8 +170,8 @@ def decode_step(model: Transformer, run: RunConfig, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, List[Cache]]:
     """token [B, 1]; cur = number of tokens already in the cache. The cache
     is updated in place and returned."""
-    x = model.decoder(embed(model, token), run, mode="decode", cache=cache,
-                      cur=cur)
+    x, _ = model.decoder(embed(model, token), run, mode="decode",
+                         cache=cache, cur=cur)
     logits = unembed(model, x)[:, 0]
     return logits.float(), cache
 
@@ -182,8 +185,9 @@ def forward_hidden(model: Transformer, run: RunConfig, tokens: torch.Tensor,
     [B, P + S, d], no cache. Unembed only the positions a caller needs: at
     gemma3-12b's vocabulary all of them would be [B, S, 262144] f32."""
     check_attn_impl(run.attn_impl)
-    return model.decoder(embed(model, tokens, patches), run, mode="train",
+    x, _ = model.decoder(embed(model, tokens, patches), run, mode="train",
                          enc_out=encode(model, run, frames))
+    return x
 
 
 # ------------------------------------------------------------ input batch --

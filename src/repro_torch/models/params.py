@@ -16,6 +16,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# elements of a normal leaf drawn at once (1 GiB in f32): init's peak is
+# the weights plus one such slice
+INIT_SLICE = 1 << 28
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -219,8 +222,19 @@ def _init_leaf(spec: ParamSpec, cfg: ModelConfig, gen: torch.Generator,
             else torch.log(torch.expm1(u))
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     sc = min(spec.scale, 1.0 / math.sqrt(fan_in))
-    w = torch.randn(spec.shape, dtype=f32, device=device, generator=gen)
-    return (w.mul_(sc)).to(dt)
+    n = math.prod(spec.shape)
+    if n <= INIT_SLICE:
+        w = torch.randn(spec.shape, dtype=f32, device=device, generator=gen)
+        return (w.mul_(sc)).to(dt)
+    # a large leaf is drawn in f32 slices of its flat view, each cast into
+    # the result as it comes: the f32 temporary stays one slice
+    out = torch.empty(spec.shape, dtype=dt, device=device)
+    flat = out.view(-1)
+    for i in range(0, n, INIT_SLICE):
+        m = min(INIT_SLICE, n - i)
+        flat[i:i + m] = torch.randn(m, dtype=f32, device=device,
+                                    generator=gen).mul_(sc)
+    return out
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,

@@ -5,10 +5,13 @@ pattern with stacked parameters; here the stack is a Python loop over one
 module per layer (layer ``g * period + i`` is the reference's group ``g``,
 sub-layer ``i``). One code path serves train (the plain full forward),
 prefill and decode — the mode only changes positions, masking source, and
-cache handling. The ``dense``, ``ssm`` (Mamba-2), ``encdec`` (a
-bidirectional encoder and cross-attention in every decoder layer) and
-``vlm`` families run every mode; ``moe`` and ``hybrid`` raise until their
-slice.
+cache handling. Every family runs every mode: ``dense``, ``ssm``
+(Mamba-2), ``moe`` (routed experts in the FFN), ``hybrid`` (Mamba-2 and
+attention layers interleaved, MoE on some), ``encdec`` (a bidirectional
+encoder and cross-attention in every decoder layer) and ``vlm``. The
+decoder returns the MoE auxiliary loss beside its output, summed per
+group of ``period`` layers and then over the groups, as the reference
+sums it in and across its scan.
 
 With ``run.remat != "none"`` a training forward checkpoints each group of
 ``period`` decoder layers and each encoder layer
@@ -28,6 +31,7 @@ from repro_torch.models import kvcache as KC
 from repro_torch.models import params as P
 from repro_torch.models.layers import (apply_rope, attention,
                                        attention_projections, ffn, rms_norm)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import SSMState, mamba_block
 
 Cache = Dict[str, torch.Tensor]
@@ -146,6 +150,12 @@ def _ffn_sublayer(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     return ffn(p, h, gated=cfg.ffn_gated)
 
 
+def _moe_sublayer(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                  x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    return moe_ffn(p, h, cfg.moe, gated=cfg.ffn_gated)
+
+
 def _ssm_sublayer(cfg: ModelConfig, run: RunConfig,
                   p: Dict[str, torch.Tensor], x: torch.Tensor, *,
                   mode: str, cache: Optional[Cache]) -> torch.Tensor:
@@ -171,7 +181,7 @@ def _ssm_sublayer(cfg: ModelConfig, run: RunConfig,
 # -------------------------------------------------------------- the stack ---
 class DecoderLayer(nn.Module):
     """One mixer sub-layer (attention or Mamba-2), cross-attention to the
-    encoder when there is one, and the dense FFN."""
+    encoder when there is one, and the dense FFN or the MoE."""
 
     def __init__(self, cfg: ModelConfig, spec: P.SubLayerSpec,
                  state: Mapping[str, torch.Tensor], prefix: str):
@@ -183,12 +193,16 @@ class DecoderLayer(nn.Module):
             self.ssm = _group(state, prefix + "ssm.")
         if cfg.encoder_layers:
             self.cross = _group(state, prefix + "cross.")
-        if spec.has_ffn:
+        if spec.has_ffn and spec.is_moe:
+            self.moe = _group(state, prefix + "moe.")
+        elif spec.has_ffn:
             self.ffn = _group(state, prefix + "ffn.")
 
     def forward(self, x: torch.Tensor, run: RunConfig, *, mode: str,
                 cur: Optional[int], cache: Optional[Cache],
-                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                enc_out: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """-> (x, the MoE's aux loss, or None without one)."""
         if self.spec.mixer == "attn":
             x = x + _attn_sublayer(self.cfg, run, self.spec,
                                    self.attn.params(), x, mode=mode,
@@ -199,9 +213,13 @@ class DecoderLayer(nn.Module):
         if self.cfg.encoder_layers:
             x = x + _cross_sublayer(self.cfg, self.cross.params(), x,
                                     mode=mode, enc_out=enc_out, cache=cache)
-        if self.spec.has_ffn:
+        aux = None
+        if self.spec.has_ffn and self.spec.is_moe:
+            y, aux = _moe_sublayer(self.cfg, self.moe.params(), x)
+            x = x + y
+        elif self.spec.has_ffn:
             x = x + _ffn_sublayer(self.cfg, self.ffn.params(), x)
-        return x
+        return x, aux
 
 
 class Decoder(nn.Module):
@@ -209,11 +227,6 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig, state: Mapping[str, torch.Tensor]):
         super().__init__()
-        if cfg.family in ("moe", "hybrid"):
-            raise NotImplementedError(
-                f"the {cfg.family!r} family comes with a later slice of the "
-                f"port (ROADMAP.md, queue 1, item 6: moe.py and the moe and "
-                f"hybrid families)")
         self.cfg = cfg
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, spec, state, f"decoder.layers.{i}.")
@@ -223,34 +236,43 @@ class Decoder(nn.Module):
     def forward(self, x: torch.Tensor, run: RunConfig, *, mode: str,
                 cache: Optional[List[Cache]] = None,
                 cur: Optional[int] = None,
-                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: [B, S, d] -> the final-normed hidden states; ``cache`` (one
-        dict per layer) is written in place in prefill and decode;
-        ``enc_out`` [B, S_enc, d] is the encoder's output in train and
-        prefill (decode reads it from the cache)."""
+                enc_out: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: [B, S, d] -> (the final-normed hidden states, the MoE aux
+        loss summed over layers, f32, 0 without MoE); ``cache`` (one dict
+        per layer) is written in place in prefill and decode; ``enc_out``
+        [B, S_enc, d] is the encoder's output in train and prefill (decode
+        reads it from the cache)."""
         if (cache is None) != (mode == "train"):
             raise ValueError("prefill and decode take a cache, train none")
         remat = (mode == "train" and run.remat != "none"
                  and torch.is_grad_enabled())
         period = P.block_period(self.cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for g in range(0, len(self.layers), period):
             caches = None if cache is None else cache[g:g + period]
             args = (x, self.layers[g:g + period], run, mode, cur, caches,
                     enc_out)
-            x = (checkpoint(_run_group, *args, use_reentrant=False)
-                 if remat else _run_group(*args))
-        return rms_norm(x, self.norm, self.cfg.norm_eps)
+            x, aux_g = (checkpoint(_run_group, *args, use_reentrant=False)
+                        if remat else _run_group(*args))
+            aux = aux + aux_g
+        return rms_norm(x, self.norm, self.cfg.norm_eps), aux
 
 
 def _run_group(x: torch.Tensor, layers: nn.ModuleList, run: RunConfig,
                mode: str, cur: Optional[int],
                caches: Optional[List[Cache]],
-               enc_out: Optional[torch.Tensor]) -> torch.Tensor:
+               enc_out: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One group of ``period`` layers -> (x, the group's aux sum)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(layers):
-        x = layer(x, run, mode=mode, cur=cur,
-                  cache=None if caches is None else caches[i],
-                  enc_out=enc_out)
-    return x
+        x, aux_l = layer(x, run, mode=mode, cur=cur,
+                         cache=None if caches is None else caches[i],
+                         enc_out=enc_out)
+        if aux_l is not None:
+            aux = aux + aux_l
+    return x, aux
 
 
 class EncoderLayer(nn.Module):

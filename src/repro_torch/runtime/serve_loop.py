@@ -45,7 +45,7 @@ class Completion:
 # Families the Server serves: text prompts in, tokens out. A ``vlm`` is
 # served text only, as the reference's Server passes only ``{"tokens"}``;
 # an ``encdec`` model needs audio frames, which neither Server has.
-SERVED_FAMILIES = ("dense", "ssm", "vlm")
+SERVED_FAMILIES = ("dense", "ssm", "vlm", "moe", "hybrid")
 
 
 def pick_site(cluster: Cluster, t: float) -> str:
@@ -110,15 +110,16 @@ class Server:
     def step_epoch(self) -> List[Completion]:
         """Serve one static batch from the queue. Shorter prompts are
         right-padded with token 0 and decoding starts after the longest
-        one, as in the reference. An SSM's padded prompt length must be a
-        multiple of its scan chunk, as the reference asserts (else
-        ``ValueError``, the batch left in the queue)."""
+        one, as in the reference. The padded prompt length of a model with
+        Mamba-2 layers (``ssm``, ``hybrid``) must be a multiple of its
+        scan chunk, as the reference asserts (else ``ValueError``, the
+        batch left in the queue)."""
         if not self.queue:
             return []
         batch_reqs = self.queue[:self.batch]
         S = max(r.prompt.shape[0] for r in batch_reqs)
         ssm = self.cfg.ssm
-        if self.cfg.family == "ssm" and S % ssm.chunk_size:
+        if self.cfg.family in ("ssm", "hybrid") and S % ssm.chunk_size:
             raise ValueError(f"{self.cfg.name} prefills whole scan chunks: "
                              f"prompt length {S} is not a multiple of "
                              f"{ssm.chunk_size}")

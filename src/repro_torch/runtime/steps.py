@@ -22,9 +22,10 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
     ``run.microbatch`` equal slices of every batch entry, an ``encdec``'s
     frames or a ``vlm``'s patches too, when it is > 1), then one
     AdamW step that updates ``model``'s parameters and ``opt`` in place.
-    The metrics are {"loss", "lr", "grad_norm", "clip_scale"} (and "nll",
-    "aux" without microbatching), tensors on the model's device except
-    the float "lr"."""
+    The metrics are {"loss", "lr", "grad_norm", "clip_scale", "aux"} (the
+    MoE auxiliary loss, 0 without experts; the mean over microbatches
+    with them) and "nll" without microbatching, tensors on the model's
+    device except the float "lr"."""
     check_attn_impl(run.attn_impl)
 
     def train_step(model: M.Transformer, opt: OptState,
@@ -41,16 +42,18 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
                                 device=t.device) for t in tensors]
             lsum = torch.zeros((), dtype=torch.float32,
                                device=tensors[0].device)
+            asum = torch.zeros_like(lsum)
             for i in range(n):
                 mb = {k: v[i * (B // n):(i + 1) * (B // n)]
                       for k, v in batch.items()}
-                l, _ = M.loss_fn(model, run, mb)
+                l, mm = M.loss_fn(model, run, mb)
                 for acc, g in zip(gsum, torch.autograd.grad(l, tensors)):
                     acc.add_(g)
                 lsum = lsum + l.detach()
+                asum = asum + mm["aux"]
             grads = [g / n for g in gsum]
             loss = lsum / n
-            metrics: Dict[str, object] = {}
+            metrics: Dict[str, object] = {"aux": asum / n}
         else:
             loss, metrics = M.loss_fn(model, run, batch)
             grads = torch.autograd.grad(loss, tensors)

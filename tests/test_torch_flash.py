@@ -31,8 +31,10 @@ CASES = {
 # edges of the kernel's 128-row q tiles and 64-key kv tiles, on the card
 # only: T not a multiple of 128, T shorter than one tile, window 1, a
 # window past T, gemma3-12b's GQA 16:8 at head_dim 240, three 64-column
-# chunks of head_dim, and internvl2-1b's prefill (GQA 14:2, a group of 7,
-# at head_dim 64, one chunk)
+# chunks of head_dim, internvl2-1b's prefill (GQA 14:2, a group of 7,
+# at head_dim 64, one chunk), jamba's (32:8 at 128, two whole chunks) and
+# kimi-k2's (64:8 at 112, a partial second chunk), and both head_dims with
+# a window and a ragged T
 EDGES = {
     "gqa_14to2_d64": (4, 2048, 14, 2, 64, None),
     "t_130": (1, 130, 2, 2, 64, None),
@@ -41,6 +43,10 @@ EDGES = {
     "window_past_t": (1, 200, 2, 2, 64, 256),
     "gqa_16to8_d240": (1, 300, 16, 8, 240, 100),
     "d192_ragged": (1, 150, 2, 2, 192, None),
+    "gqa_32to8_d128": (4, 2048, 32, 8, 128, None),
+    "gqa_64to8_d112": (4, 2048, 64, 8, 112, None),
+    "d128_window": (1, 300, 4, 1, 128, 100),
+    "d112_ragged": (1, 150, 8, 1, 112, None),
 }
 
 

@@ -83,7 +83,8 @@ def test_cluster_copy_differs_only_in_the_chip_figures():
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "qwen1.5-32b",
-                                  "jamba-v0.1-52b", "kimi-k2-1t-a32b"])
+                                  "jamba-v0.1-52b", "kimi-k2-1t-a32b",
+                                  "arctic-480b"])
 def test_param_spec_tree_equal(arch):
     cfg_t, cfg_r = tcfg.get_config(arch), rcfg.get_config(arch)
     got = dict(tp.tree_leaves(tp.param_spec_tree(cfg_t)))

@@ -42,11 +42,14 @@ CASES = {
 # edges of the kernel's passes, on the card only: one chunk of 64 (the
 # smallest chunk, batch 1, an odd head count), two chunks at batch 1; and
 # mamba2-370m's serving prefill (4 x 2048 tokens, 32 heads), whose final
-# state becomes the decode state
+# state becomes the decode state; jamba's (d_state 16, 128 heads) and
+# d_state 16 over two chunks at batch 1
 EDGES = {
     "one_chunk_64": (1, 64, 3, 16, 16, 64),
     "two_chunks_b1": (1, 128, 2, 32, 32, 64),
     "mamba2_serving_b4": (4, 2048, 32, 64, 128, 256),
+    "jamba_serving_d16": (4, 2048, 128, 64, 16, 256),
+    "d16_two_chunks_b1": (1, 512, 4, 64, 16, 256),
 }
 F32_REL = 1e-5
 BF16_REL_RMS = 1e-3
