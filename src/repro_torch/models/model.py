@@ -139,7 +139,9 @@ def loss_fn(model: Transformer, run: RunConfig,
     nll_sum, denom = chunked_xent(model, x, batch["targets"], xent_chunk)
     nll = nll_sum / denom
     loss = nll
-    if model.cfg.moe is not None:
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
         loss = loss + model.cfg.moe.aux_loss_weight * aux
     return loss, {"nll": nll.detach(), "aux": aux.detach()}
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -35,17 +36,26 @@ def capacity(n_tokens: int, cfg: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+_TF32_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def ieee_f32():
     """cuBLAS f32 products in full f32 (no TF32) inside the block,
-    whatever the process-wide switch says."""
+    whatever the process-wide switch says.
+
+    The switch is the process's own: while a block runs, every thread's f32
+    products go without TF32. Blocks of several threads take turns under
+    one lock, so each restores the value it found and the switch comes
+    back as it was, also when the block raises."""
     m = torch.backends.cuda.matmul
-    prev = m.allow_tf32
-    m.allow_tf32 = False
-    try:
-        yield
-    finally:
-        m.allow_tf32 = prev
+    with _TF32_LOCK:
+        prev = m.allow_tf32
+        m.allow_tf32 = False
+        try:
+            yield
+        finally:
+            m.allow_tf32 = prev
 
 
 def route(router_w: torch.Tensor, x: torch.Tensor, cfg: MoEConfig
@@ -98,7 +108,7 @@ def scatter(xt: torch.Tensor, e_flat: torch.Tensor, slot: torch.Tensor,
     e_scatter = torch.where(keep, e_flat, n_experts)
     buf = torch.zeros((n_experts + 1, cap, xt.shape[1]), dtype=xt.dtype,
                       device=xt.device)
-    buf = buf.index_put((e_scatter, slot), xt[tok])
+    buf.index_put_((e_scatter, slot), xt[tok])
     return buf[:n_experts]
 
 

@@ -223,11 +223,9 @@ def _init_leaf(spec: ParamSpec, cfg: ModelConfig, gen: torch.Generator,
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     sc = min(spec.scale, 1.0 / math.sqrt(fan_in))
     n = math.prod(spec.shape)
-    if n <= INIT_SLICE:
-        w = torch.randn(spec.shape, dtype=f32, device=device, generator=gen)
-        return (w.mul_(sc)).to(dt)
-    # a large leaf is drawn in f32 slices of its flat view, each cast into
-    # the result as it comes: the f32 temporary stays one slice
+    # drawn in f32 slices of the flat view, each cast into the result as it
+    # comes: the f32 temporary stays one slice (a leaf of at most one slice
+    # is one draw of its whole size, as ``randn(shape)`` would make it)
     out = torch.empty(spec.shape, dtype=dt, device=device)
     flat = out.view(-1)
     for i in range(0, n, INIT_SLICE):

@@ -237,9 +237,10 @@ class Decoder(nn.Module):
                 cache: Optional[List[Cache]] = None,
                 cur: Optional[int] = None,
                 enc_out: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x: [B, S, d] -> (the final-normed hidden states, the MoE aux
-        loss summed over layers, f32, 0 without MoE); ``cache`` (one dict
+        loss summed over layers, f32, or None without MoE layers, so that a
+        model without experts launches nothing for it); ``cache`` (one dict
         per layer) is written in place in prefill and decode; ``enc_out``
         [B, S_enc, d] is the encoder's output in train and prefill (decode
         reads it from the cache)."""
@@ -248,30 +249,38 @@ class Decoder(nn.Module):
         remat = (mode == "train" and run.remat != "none"
                  and torch.is_grad_enabled())
         period = P.block_period(self.cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = None
         for g in range(0, len(self.layers), period):
             caches = None if cache is None else cache[g:g + period]
             args = (x, self.layers[g:g + period], run, mode, cur, caches,
                     enc_out)
             x, aux_g = (checkpoint(_run_group, *args, use_reentrant=False)
                         if remat else _run_group(*args))
-            aux = aux + aux_g
+            aux = _add_aux(aux, aux_g)
         return rms_norm(x, self.norm, self.cfg.norm_eps), aux
+
+
+def _add_aux(total: Optional[torch.Tensor],
+             aux: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A running aux sum that stays None until a term comes."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 def _run_group(x: torch.Tensor, layers: nn.ModuleList, run: RunConfig,
                mode: str, cur: Optional[int],
                caches: Optional[List[Cache]],
                enc_out: Optional[torch.Tensor]
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One group of ``period`` layers -> (x, the group's aux sum)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One group of ``period`` layers -> (x, the group's aux sum, or None
+    without MoE layers)."""
+    aux = None
     for i, layer in enumerate(layers):
         x, aux_l = layer(x, run, mode=mode, cur=cur,
                          cache=None if caches is None else caches[i],
                          enc_out=enc_out)
-        if aux_l is not None:
-            aux = aux + aux_l
+        aux = _add_aux(aux, aux_l)
     return x, aux
 
 

@@ -216,6 +216,22 @@ def test_port_init_follows_the_spec_distributions():
     assert torch.equal(again["embed"]["tok"], tree["embed"]["tok"])
 
 
+@pytest.mark.parametrize("init_slice", [tp.INIT_SLICE, 64])
+def test_init_leaf_slices_draw_the_whole_leaf_stream(monkeypatch,
+                                                     init_slice):
+    """A normal leaf drawn in slices of its flat view (four of 64 here)
+    holds the values of one whole f32 draw, scaled and cast once."""
+    monkeypatch.setattr(tp, "INIT_SLICE", init_slice)
+    cfg = tcfg.get_reduced("gemma3-12b", layers=2)
+    spec = tp.ParamSpec((8, 32), (None, None), scale=0.02)
+    got = tp._init_leaf(spec, cfg, torch.Generator().manual_seed(5),
+                        torch.device("cpu"))
+    whole = torch.randn((8, 32), dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(5))
+    assert got.dtype == tp.torch_dtype(cfg.dtype)
+    assert torch.equal(got, whole.mul_(min(0.02, 8 ** -0.5)).to(got.dtype))
+
+
 def test_embed_and_unembed_match_in_bf16():
     """bf16 rounds sqrt(d_model) before the multiply (6.9375 for
     sqrt(48); 62.0 for gemma3-12b's sqrt(3840)), as the reference's

@@ -231,3 +231,39 @@ def test_router_runs_in_true_f32_whatever_the_switch(monkeypatch):
               TC(n_experts=4, top_k=2, d_ff_expert=8))
     assert seen == [False]
     assert torch.backends.cuda.matmul.allow_tf32 is True
+
+
+@pytest.mark.parametrize("before", [True, False])
+def test_route_restores_the_switch_when_it_raises(monkeypatch, before):
+    """A router product that raises (mismatched widths) leaves the
+    process-wide TF32 switch as it found it."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", before)
+    with pytest.raises(RuntimeError):
+        moe.route(torch.randn(5, 4), torch.randn(3, 8),
+                  TC(n_experts=4, top_k=2, d_ff_expert=8))
+    assert torch.backends.cuda.matmul.allow_tf32 is before
+
+
+def test_ieee_f32_blocks_of_several_threads_restore_the_switch(monkeypatch):
+    """Threads that enter ``ieee_f32`` together each see TF32 off inside
+    and leave the switch as it was before any of them."""
+    import threading
+    import time
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    inside = []
+    start = threading.Barrier(8)
+
+    def work():
+        start.wait()
+        for _ in range(50):
+            with moe.ieee_f32():
+                time.sleep(0)
+                inside.append(torch.backends.cuda.matmul.allow_tf32)
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(inside) == 400 and not any(inside)
+    assert torch.backends.cuda.matmul.allow_tf32 is True
