@@ -11,7 +11,12 @@ and drives the port's paths:
   torch versions on the tables of a real 4096-job admission window, then
   ``TorchCarbonPlanner.plan_batch`` over four 4096-job windows of the
   ``planner_scale`` deployment, with 32 sampled plans checked against the
-  port's numpy oracle;
+  port's numpy oracle; then the per-leg torch scorer
+  (``TorchCarbonPlanner(backend="torch")``) on ``planner_scan``'s
+  deployment: one ``plan()``, the 200-job batch through ``plan_batch``'s
+  per-job scan and 32 re-scores under a drift hook, each equal to the
+  numpy backend's cells with emissions and cost within 1e-4, no leg off
+  the card, ``plan()`` timed on both backends and profiled;
 * the fleet control plane's closed loop: ``examples/fleet_day.py``'s first
   act (4000 jobs over 24 simulated hours, a 4-shard ``ShardedFleet``, a 6x
   forecast shock at 11:00 for six hours) on the default fused backend,
@@ -74,7 +79,18 @@ and drives the port's paths:
   model's prefill shapes, ``Server`` answering 8 (jamba) or 4 requests of
   2048-token prompts with 32 new tokens, a profile of one prefill and
   three decode steps, and the MoE logit gate (see MOE_PHASES), which
-  prints each MoE layer's dropped assignments and top-k flips.
+  prints each MoE layer's dropped assignments and top-k flips;
+* the same three families trained at full width with depth and expert
+  count cut to one card (phases 17-19, MOE_TRAIN_PHASES): jamba-v0.1-52b
+  one 8-layer period with 3 of 16 experts at 2 x 2048 tokens,
+  arctic-480b one layer with 8 of 128 at 8 x 2048, kimi-k2 one layer with
+  16 of 384 at 4 x 2048: ``launch.train --full`` refused with its byte
+  count, the flash kernel (and jamba's SSD kernel) against its plain
+  version at the training shapes, one train step on the kernel path
+  against the plain path routing as the kernel path chose (loss, aux,
+  gradient norms; every recompute routing as its forward), then three
+  ``Trainer`` steps with their seconds, tokens/s, peak memory, launches
+  and gCO2, and a profile of one more step.
 
 Every phase that fails raises, so the exit code is non-zero; without a
 CUDA device the script exits 2 and prints no result. Each phase prints its
@@ -83,11 +99,13 @@ seconds. The last line of stdout is one JSON object
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -553,6 +571,155 @@ class SplitTimer:
         torch.cuda.synchronize()
         return {n: sum(a.elapsed_time(b) for a, b in ev)
                 for n, ev in self.events.items()}
+
+
+# --- 4b: the per-leg scorer behind plan() and rescore() ---------------------
+#
+# TorchCarbonPlanner(backend="torch") scores each (FTN x replica) leg of a
+# plan() or rescore() on the card (grid_torch.TorchGridScorer, torch ops,
+# no kernel of its own). Held against backend="numpy", the pinned oracle:
+# the same cell, emissions and cost within LEG_TOL_REL, as the reference
+# holds its jax scorer (tests/test_controlplane.py); the torch side runs
+# the f32 CI chain of the lattice (~1e-7 relative).
+
+LEG_TOL_REL = 1e-4
+N_PLAN_TIMED = 20              # plan() timings per backend (median)
+N_RESCORED = 32
+
+
+def planner_scan_jobs(mod):
+    """``benchmarks/perf.py::planner_scan``'s deployment: its FTNs, its job
+    (300 GB from uc or m1 to tacc, 48 h deadline) and its 200-job batch
+    (50-449 GB, submissions over 4 h in 600 s steps)."""
+    from repro_torch.core.carbon.intensity import PAPER_WINDOW_T0 as t0
+    ftns = [mod.FTN("uc", "skylake", 10.0), mod.FTN("m1", "apple_m1", 1.2),
+            mod.FTN("tacc", "cascade_lake", 10.0)]
+    job = mod.TransferJob("bench", 300e9, ("uc", "m1"), "tacc",
+                          mod.SLA(deadline_s=48 * 3600.0), t0)
+    batch = [mod.TransferJob(f"b{i}", (50 + (7 * i) % 400) * 1e9,
+                             ("uc", "m1"), "tacc",
+                             mod.SLA(deadline_s=48 * 3600.0),
+                             t0 + (i % 24) * 600.0) for i in range(200)]
+    return ftns, job, batch
+
+
+def plan_diffs(got, want) -> dict:
+    """Plans against the oracle's: cells (start, source, FTN, feasible)
+    that differ, and the largest relative emission and cost difference
+    over the cells that agree (an infinite cost must be infinite on both
+    sides)."""
+    cells, emis, cost = 0, 0.0, 0.0
+    for g, w in zip(got, want):
+        if (g.start_t, g.source, g.ftn, g.feasible) != \
+                (w.start_t, w.source, w.ftn, w.feasible):
+            cells += 1
+            continue
+        emis = max(emis, _rel(g.predicted_emissions_g,
+                              w.predicted_emissions_g))
+        cost = max(cost, _rel(g.cost, w.cost) if math.isfinite(w.cost)
+                   else (0.0 if g.cost == w.cost else math.inf))
+    return {"plans": len(got), "cell_mismatches": cells
+            + abs(len(got) - len(want)), "max_emis_rel_err": emis,
+            "max_cost_rel_err": cost}
+
+
+def busy_ms(prof) -> float:
+    """The ms in which the device ran at least one of a profile's device
+    events (kernels, copies, sets): the union of their intervals, so work
+    that overlaps is counted once."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    total, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def device_events(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: its device events (kernels,
+    copies, sets), their device ms and the wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return {"device_events": len(dev), "device_ms": ms,
+            "profiled_wall_ms": wall_ms,
+            "busy_share": busy_ms(prof) / wall_ms}
+
+
+def leg_scorer(tp) -> dict:
+    """``plan()``, ``plan_batch()`` (``batch_backend="numpy"``: a
+    ``plan()`` a job) and ``rescore()`` on the torch backend against the
+    numpy backend on ``planner_scan``'s deployment: one plan (then timed,
+    the two backends in turns, and profiled), the 200-job batch, and 32
+    of its plans re-scored under a drift hook (as
+    ``tests/_torch_ref.py::drift``). Every leg on the card: numpy legs 0."""
+    ftns, job, batch = planner_scan_jobs(tp)
+    fast = tp.TorchCarbonPlanner(ftns, device=DEVICE, backend="torch",
+                                 batch_backend="numpy")
+    oracle = tp.TorchCarbonPlanner(ftns, device=DEVICE,
+                                   batch_backend="numpy")
+    one = plan_diffs([fast.plan(job)], [oracle.plan(job)])
+    times = {"torch": [], "numpy": []}
+    for _ in range(N_PLAN_TIMED):
+        for name, pl in (("numpy", oracle), ("torch", fast)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pl.plan(job)
+            times[name].append((time.perf_counter() - t0) * 1e6)
+    legs0 = fast.scorer.legs
+    prof = device_events(lambda: fast.plan(job))
+    legs_a_plan = fast.scorer.legs - legs0
+    t0 = time.perf_counter()
+    got = fast.plan_batch(batch)
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = oracle.plan_batch(batch)
+    batch_numpy_s = time.perf_counter() - t0
+    many = plan_diffs(got, want)
+
+    def drift(path, ts):
+        return 1.0 + 0.1 * np.sin(np.asarray(ts) / 7200.0 + path.n_hops)
+
+    picks = np.linspace(0, len(batch) - 1, N_RESCORED).round().astype(int)
+    rescored = []
+    for pl in (fast, oracle):
+        pl.emission_scale_fn = drift
+        rescored.append([pl.rescore(batch[i], got[i]) for i in picks])
+        pl.emission_scale_fn = None
+    if any(p is None for plans in rescored for p in plans):
+        raise RuntimeError("a re-score found its plan's cell gone")
+    re = plan_diffs(*rescored)
+    sc = fast.scorer
+    res = {"plan": one, "batch": many, "rescore": re,
+           "plan_us_numpy": statistics.median(times["numpy"]),
+           "plan_us_torch": statistics.median(times["torch"]),
+           "plan_us_rounds": times, "legs_a_plan": legs_a_plan,
+           "device_events_a_plan": prof["device_events"],
+           "device_ms_a_plan": prof["device_ms"],
+           "plan_busy_share": prof["busy_share"],
+           "batch_s_torch": batch_s, "batch_s_numpy": batch_numpy_s,
+           "windows_built": sc.windows_built, "legs": sc.legs,
+           "numpy_legs": sc.numpy_legs, "tol_rel": LEG_TOL_REL}
+    emit({"leg_scorer": res})
+    bad = [k for k, d in (("plan", one), ("batch", many), ("rescore", re))
+           if d["cell_mismatches"] or not (
+               d["max_emis_rel_err"] <= LEG_TOL_REL
+               and d["max_cost_rel_err"] <= LEG_TOL_REL)]
+    if bad or len(got) != len(batch) or sc.numpy_legs or not sc.legs:
+        raise RuntimeError(f"the per-leg torch scorer disagrees with numpy "
+                           f"({bad}) or left the card: {res}")
+    return res
 
 
 # --- the fleet day: the control plane's closed loop --------------------------
@@ -1294,19 +1461,20 @@ def flash_bound_ms(b: int, t: int, hq: int, hkv: int, d: int,
         "operations" if ops_s >= bytes_s else "bytes")
 
 
-def check_flash(fa, cfg, usage=None, cases=FLASH_CASES) -> list:
+def check_flash(fa, cfg, usage=None, cases=FLASH_CASES,
+                batch: int = SERVE_BATCH) -> list:
     """The flash kernel against its plain version at a model's prefill
-    shapes (4 sequences of ``cfg``'s heads and head_dim, bf16; gemma3-12b:
-    16 query heads over 8 kv heads of 240); ``scaled_dot_product_attention``
-    on the same inputs and mask is timed as the library yardstick only.
-    ``usage`` (from :func:`ptxas_usage`) adds the kernel's registers and
-    shared memory."""
+    shapes (``batch`` sequences of ``cfg``'s heads and head_dim, bf16;
+    gemma3-12b: 16 query heads over 8 kv heads of 240), or at a training
+    step's; ``scaled_dot_product_attention`` on the same inputs and mask
+    is timed as the library yardstick only. ``usage`` (from
+    :func:`ptxas_usage`) adds the kernel's registers and shared memory."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = []
     for name, t, window, causal in cases:
-        q, k, v = (torch.randn((SERVE_BATCH, t, h, d), generator=gen,
+        q, k, v = (torch.randn((batch, t, h, d), generator=gen,
                                device=DEVICE).to(torch.bfloat16)
                    for h in (hq, hkv, hkv))
 
@@ -1339,8 +1507,7 @@ def check_flash(fa, cfg, usage=None, cases=FLASH_CASES) -> list:
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   attn_mask=mask)
 
-        bound, by = flash_bound_ms(SERVE_BATCH, t, hq, hkv, d, window,
-                                   causal)
+        bound, by = flash_bound_ms(batch, t, hq, hkv, d, window, causal)
         case = {"case": name, "q": list(q.shape), "kv": list(k.shape),
                 "window": window, "causal": causal, **err,
                 "tol_rel_rms": FLASH_REL_RMS_TOL,
@@ -1758,26 +1925,28 @@ def check_train_step(M, adamw, kernel, cfg, run, batch,
 
 class StepProbe:
     """Instruments ``Trainer.step_fn`` without changing it: a synchronized
-    host clock, the SSD launches, the peak device memory and the site and
-    simulated time of every step."""
+    host clock, each kernel wrapper's launches (``kernels``: name ->
+    wrapper), the peak device memory and the site and simulated time of
+    every step."""
 
-    def __init__(self, tr, ssd):
-        self.tr, self.ssd, self.orig = tr, ssd, tr.step_fn
+    def __init__(self, tr, kernels: dict):
+        self.tr, self.kernels, self.orig = tr, kernels, tr.step_fn
         self.rows: list = []
 
     def __enter__(self):
         def timed(model, opt, batch):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            before = self.ssd.ssd_scan.launches
+            before = {n: k.launches for n, k in self.kernels.items()}
             t0 = time.perf_counter()
             m = self.orig(model, opt, batch)
             torch.cuda.synchronize()
             self.rows.append({
                 "wall_s": time.perf_counter() - t0,
-                "loss": float(m["loss"]),
+                "loss": float(m["loss"]), "aux": float(m["aux"]),
                 "grad_norm": float(m["grad_norm"]),
-                "ssd_launches": self.ssd.ssd_scan.launches - before,
+                "launches": {n: k.launches - before[n]
+                             for n, k in self.kernels.items()},
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "site": self.tr.site, "t": self.tr.t})
             return m
@@ -1829,7 +1998,7 @@ def train_and_restore(tl, ssd, cfg, run, power_w: float) -> tuple:
         raise RuntimeError("the trained model is not mamba2-370m at full "
                            "size")
     ssd.ssd_scan.launches = 0
-    with StepProbe(tr, ssd) as probe:
+    with StepProbe(tr, {"ssd": ssd.ssd_scan}) as probe:
         t0 = time.perf_counter()
         out = tr.run_steps()
         torch.cuda.synchronize()
@@ -1841,7 +2010,8 @@ def train_and_restore(tl, ssd, cfg, run, power_w: float) -> tuple:
         ci = calibrated_ci(tr.cluster.zone_of(r["site"]), r["t"])
         emit({"train_step": i + 1, "wall_s": r["wall_s"],
               "tokens_per_s": tokens / r["wall_s"], "loss": r["loss"],
-              "grad_norm": r["grad_norm"], "ssd_launches": r["ssd_launches"],
+              "grad_norm": r["grad_norm"],
+              "ssd_launches": r["launches"]["ssd"],
               "ssd_launches_expected": per_step, "peak_gb": r["peak_gb"],
               "site": r["site"], "ci_g_per_kwh": ci,
               "g_co2": r["wall_s"] * power_w / 3.6e6 * ci})
@@ -1855,7 +2025,7 @@ def train_and_restore(tl, ssd, cfg, run, power_w: float) -> tuple:
                            f"{TRAIN_STEPS}")
     if not all(math.isfinite(r["loss"]) for r in probe.rows):
         raise RuntimeError("a training loss is not finite")
-    if any(r["ssd_launches"] != per_step for r in probe.rows) \
+    if any(r["launches"]["ssd"] != per_step for r in probe.rows) \
             or launches != per_step * TRAIN_STEPS:
         raise RuntimeError(f"SSD launches {launches} != {cfg.n_layers} "
                            f"layers x 2 (remat) x {TRAIN_STEPS} steps")
@@ -1918,11 +2088,13 @@ def profile_training(ops, tr) -> dict:
     split = {"gemm_ms": 0.0, "ssd_kernel_ms": 0.0, "other_ms": 0.0,
              "ssd_plain_backward_ms": 0.0}
     by_name: dict = {}
+    n_kernels = 0
     for evt in prof.events():
         if evt.device_type != DeviceType.CPU or not evt.kernels:
             continue
         in_bwd = inside(evt)
         for k in evt.kernels:
+            n_kernels += 1
             ms = k.duration / 1e3
             by_name[k.name] = by_name.get(k.name, 0.0) + ms
             key = ("ssd_plain_backward_ms" if in_bwd
@@ -1933,8 +2105,10 @@ def profile_training(ops, tr) -> dict:
             split[key] += ms
     total = sum(split.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"wall_ms": wall_ms, "device_ms": total,
-            "busy_share": total / wall_ms, "idle_share": 1 - total / wall_ms,
+    busy = busy_ms(prof)
+    return {"wall_ms": wall_ms, "device_ms": total, "busy_ms": busy,
+            "device_events": n_kernels,
+            "busy_share": busy / wall_ms, "idle_share": 1 - busy / wall_ms,
             **split, "top": [[k[:90], v] for k, v in top]}
 
 
@@ -2392,6 +2566,336 @@ def moe_phases(fa, ssd, sl, M, built, power_w: float, clock, flash_cases,
         clock.mark(f"{num} {label}")
 
 
+# --- 17-19: the moe and hybrid families trained -----------------------------
+#
+# (phase, label, arch, layers kept, experts kept, batch): widths, heads,
+# the experts' width, top-k, capacity factor, shared experts and dense
+# residual are the published configs'; depth and expert count are cut so
+# that weights, gradients and AdamW state (16 bytes a parameter) fit one
+# 80 GB card with a batch. jamba: one whole 8-layer period (the depth
+# cannot go below one: block_period lcm(8, 2)), so attention + MoE, Mamba
+# + MoE and Mamba + dense layers at 1:7, with 3 of 16 experts top-2 (4.11
+# B parameters; 2 would leave top-2 no choice, 4 leave no room for a
+# batch); arctic one layer, 8 of 128 experts top-2 and the dense residual
+# (1.52 B); kimi-k2 one layer, 16 of 384 experts top-8 and the shared
+# expert (3.21 B). The batch: the largest of 8, 4, 2, 1 x TRAIN_SEQ tokens
+# whose step fits the card (scripts/train_fit.py).
+MOE_TRAIN_PHASES = (("17", "jamba", "jamba-v0.1-52b", 8, 3, 2),
+                    ("18", "arctic", "arctic-480b", 1, 8, 8),
+                    ("19", "kimi", "kimi-k2-1t-a32b", 1, 16, 4))
+MOE_TRAIN_STEPS = 3
+MOE_TRAIN_CKPT_DIR = REPO / "build" / "chip_smoke_moe_ckpt"
+# One train step, kernel path against plain path, with the plain path
+# routing as the kernel path chose (RouteReplay): without the replay a
+# near-tied top-k choice flipped by bf16 noise moves one token's output
+# by O(1) and the aux by ~1e-4 a flipped top-1 (on the card, 0-28 tokens
+# a layer at these batches, scripts/train_fit.py). With it the paths differ by bf16 rounding, as
+# mamba2's (STEP_LOSS_TOL_REL, STEP_GNORM_TOL_REL), and the aux by the
+# f32 router's sum order. Leaving the aux out of the loss moves the loss
+# by aux_loss_weight * aux (~1e-3 relative), a router gradient zeroed
+# moves the router's gradient norm by all of it
+# (tests/test_torch_moe_train.py).
+STEP_AUX_TOL_REL = 1e-4
+
+
+class RouteReplay:
+    """The port's router (``moe.route``, which ``moe_ffn`` looks up at
+    call time) recorded on the kernel path and replayed on the plain path.
+
+    :meth:`record`: every call's choices in call order (a train step
+    routes each MoE layer twice: its forward, and the recompute of
+    ``remat``), and how many recomputes chose otherwise than the forward
+    (layers told apart by their router weight). :meth:`replay`: stands in
+    for the router with its own plain version: true f32 router logits and
+    probabilities, the recorded choices in call order, renormalised, and
+    the Switch aux E * sum(me * ce) written out again; ``aux`` sums the
+    forward calls' aux, ``flips`` counts tokens whose own top-k differs
+    from the recorded one."""
+
+    def __init__(self, moe):
+        self.moe, self.real = moe, moe.route
+        self.choices: list = []
+        self.remat_mismatch = 0
+        self.aux, self.flips, self.left = None, 0, 0
+
+    @contextlib.contextmanager
+    def record(self):
+        first: dict = {}
+
+        def recorded(w, x, cfg):
+            top_p, top_i, aux = self.real(w, x, cfg)
+            if id(w) in first:
+                self.remat_mismatch += int(not torch.equal(first[id(w)],
+                                                           top_i))
+            else:
+                first[id(w)] = top_i
+            self.choices.append(top_i)
+            return top_p, top_i, aux
+
+        self.moe.route = recorded
+        try:
+            yield self
+        finally:
+            self.moe.route = self.real
+
+    @contextlib.contextmanager
+    def replay(self):
+        calls, seen = iter(self.choices), set()
+
+        def replayed(w, x, cfg):
+            top_i = next(calls)
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                logits = x.float() @ w.float()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+            probs = torch.softmax(logits, dim=-1)
+            top_p = probs.gather(1, top_i)
+            top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+            T, E = x.shape[0], cfg.n_experts
+            ce = torch.bincount(top_i[:, 0], minlength=E).float() / T
+            aux = E * torch.sum(probs.mean(0) * ce)
+            if id(w) not in seen:      # the forward; a recompute repeats it
+                seen.add(id(w))
+                with torch.no_grad():      # saves nothing for the backward
+                    own = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)[1][:, :cfg.top_k]
+                    self.flips += int((own.sort(-1)[0]
+                                       != top_i.sort(-1)[0]).any(-1).sum())
+                self.aux = aux.detach() if self.aux is None \
+                    else self.aux + aux.detach()
+            return top_p, top_i, aux
+
+        self.moe.route = replayed
+        try:
+            yield self
+        finally:
+            self.moe.route = self.real
+            self.left = sum(1 for _ in calls)
+
+
+def moe_step_terms(M, adamw, model, run, batch) -> dict:
+    """One batch's loss, nll and aux, and the global norm of its gradient
+    and of the routers' gradient (no update)."""
+    names, params = zip(*model.named_parameters())
+    loss, mm = M.loss_fn(model, run, batch)
+    grads = torch.autograd.grad(loss, list(params))
+    router = [g for n, g in zip(names, grads) if n.endswith(".router")]
+    out = {"loss": float(loss.detach()), "nll": float(mm["nll"]),
+           "aux": float(mm["aux"]), "gnorm": float(adamw.global_norm(grads)),
+           "router_gnorm": float(adamw.global_norm(router)),
+           "routers": len(router)}
+    del grads, router
+    torch.cuda.synchronize()
+    return out
+
+
+def check_moe_train_step(M, adamw, moe, cfg, run, batch, kernels: dict,
+                         label: str) -> dict:
+    """One train step of a moe or hybrid model on the kernel path (flash,
+    the SSD kernel) against the plain path (blockwise attention, the
+    chunked scan) on the same weights and batch, the plain path routing
+    with the kernel path's choices and its own plain router
+    (:class:`RouteReplay`): loss and aux within STEP_LOSS_TOL_REL and
+    STEP_AUX_TOL_REL, the gradient's global norm and the routers' within
+    STEP_GNORM_TOL_REL; the plain loss is its nll plus aux_loss_weight
+    times the replay's own aux; every recompute routes as its forward;
+    ``kernels`` (name -> (wrapper, launches)) launch as expected on the
+    kernel path. Reports the kernel path's peak device memory."""
+    model = M.build_model(cfg, seed=SEED, device=DEVICE).requires_grad_(True)
+    n_moe = sum(1 for layer in model.decoder.layers
+                if layer.spec.is_moe and layer.spec.has_ffn)
+    replay = RouteReplay(moe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: w.launches for n, (w, _) in kernels.items()}
+    t0 = time.perf_counter()
+    with replay.record():
+        k = moe_step_terms(M, adamw, model, run, batch)
+    kernel_s = time.perf_counter() - t0
+    launches = {n: w.launches - before[n] for n, (w, _) in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    with replay.replay():
+        p = moe_step_terms(M, adamw, model,
+                           dataclasses.replace(run, attn_impl="blockwise"),
+                           batch)
+    plain_s = time.perf_counter() - t0
+    aux_own = float(replay.aux)
+    weight = cfg.moe.aux_loss_weight
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "experts": cfg.moe.n_experts, "tokens": list(batch["tokens"]
+                                                       .shape),
+           **{f"{key}_kernel": v for key, v in k.items()},
+           **{f"{key}_plain": v for key, v in p.items()},
+           "aux_plain_own": aux_own,
+           "loss_rel_diff": _rel(k["loss"], p["loss"]),
+           "gnorm_rel_diff": _rel(k["gnorm"], p["gnorm"]),
+           "router_gnorm_rel_diff": _rel(k["router_gnorm"],
+                                         p["router_gnorm"]),
+           "aux_rel_diff": _rel(k["aux"], aux_own),
+           "plain_loss_vs_nll_plus_aux": _rel(p["loss"],
+                                              p["nll"] + weight * aux_own),
+           "tol_loss_rel": STEP_LOSS_TOL_REL,
+           "tol_gnorm_rel": STEP_GNORM_TOL_REL,
+           "tol_aux_rel": STEP_AUX_TOL_REL,
+           "moe_layers": n_moe, "route_calls": len(replay.choices),
+           "replay_calls_left": replay.left,
+           "remat_choice_mismatch": replay.remat_mismatch,
+           "plain_router_flips": replay.flips,
+           "kernel_path_s": kernel_s, "plain_path_s": plain_s,
+           "kernel_path_peak_gb": peak_gb, "launches_kernel_path": launches,
+           "launches_expected": {n: e for n, (_, e) in kernels.items()}}
+    emit({label: res})
+    del model, replay
+    torch.cuda.empty_cache()
+    if not (all(math.isfinite(res[f"{key}_kernel"])
+                for key in ("loss", "gnorm", "aux"))
+            and res["loss_rel_diff"] <= STEP_LOSS_TOL_REL
+            and res["gnorm_rel_diff"] <= STEP_GNORM_TOL_REL
+            and res["router_gnorm_rel_diff"] <= STEP_GNORM_TOL_REL
+            and res["aux_rel_diff"] <= STEP_AUX_TOL_REL
+            and res["plain_loss_vs_nll_plus_aux"] <= STEP_LOSS_TOL_REL
+            and res["routers_kernel"] == n_moe > 0
+            and res["route_calls"] == 2 * n_moe
+            and res["replay_calls_left"] == 0
+            and res["remat_choice_mismatch"] == 0
+            and launches == res["launches_expected"]):
+        raise RuntimeError(f"the kernel path's train step disagrees with "
+                           f"the plain one: {res}")
+    return res
+
+
+def refuse_full_training(arch: str) -> dict:
+    """``launch.train --arch <arch> --full`` on the card: refused before
+    anything is allocated, naming the bytes of weights, gradients and
+    AdamW state."""
+    from repro_torch.launch import train as train_launch
+    try:
+        train_launch.main(["--arch", arch, "--full", "--steps", "1"])
+    except MemoryError as err:
+        return {"arch": arch, "refused": str(err)}
+    raise RuntimeError(f"launch.train --full trained {arch}")
+
+
+def moe_train(tl, ops, cfg, run, batch: int, power_w: float, label: str,
+              kernels: dict) -> dict:
+    """``Trainer`` runs MOE_TRAIN_STEPS steps of ``batch`` x TRAIN_SEQ
+    tokens (no checkpoint: the interval is past the last step), each
+    step's wall, tokens/s, loss, peak memory, launches of ``kernels``
+    (name -> (wrapper, launches a step)) and gCO2 (wall x power limit x
+    the site's intensity) printed, then a profile of one more step.
+    Returns each kernel's launches over the three steps."""
+    from repro_torch.core.carbon.intensity import calibrated_ci
+    shutil.rmtree(MOE_TRAIN_CKPT_DIR, ignore_errors=True)
+    loop = tl.TrainLoopConfig(total_steps=MOE_TRAIN_STEPS,
+                              ckpt_every=MOE_TRAIN_STEPS + 1,
+                              ckpt_dir=str(MOE_TRAIN_CKPT_DIR), log_every=1,
+                              chip_power_w=power_w)
+    try:
+        t0 = time.perf_counter()
+        tr = tl.Trainer(cfg, run, loop, batch_override=batch,
+                        seq_override=TRAIN_SEQ, device=DEVICE)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in tr.params.values())
+        emit({f"{label}_train_setup": {
+            "arch": cfg.name, "layers": len(tr.model.decoder.layers),
+            "d_model": cfg.d_model, "experts": cfg.moe.n_experts,
+            "top_k": cfg.moe.top_k, "params": n_params,
+            "param_counts": cfg.param_counts(), "batch": batch,
+            "seq": TRAIN_SEQ, "remat": run.remat,
+            "init_s": time.perf_counter() - t0,
+            "alloc_gb": torch.cuda.memory_allocated() / 1e9,
+            "site": tr.site, "chip_power_w": power_w}})
+        wrappers = {n: w for n, (w, _) in kernels.items()}
+        for w in wrappers.values():
+            w.launches = 0
+        with StepProbe(tr, wrappers) as probe:
+            out = tr.run_steps()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        tokens = batch * TRAIN_SEQ
+        for i, r in enumerate(probe.rows):
+            ci = calibrated_ci(tr.cluster.zone_of(r["site"]), r["t"])
+            emit({f"{label}_train_step": i + 1, "wall_s": r["wall_s"],
+                  "tokens_per_s": tokens / r["wall_s"], "loss": r["loss"],
+                  "aux": r["aux"], "grad_norm": r["grad_norm"],
+                  "launches": r["launches"], "peak_gb": r["peak_gb"],
+                  "site": r["site"], "ci_g_per_kwh": ci,
+                  "g_co2": r["wall_s"] * power_w / 3.6e6 * ci})
+        prof = profile_training(ops, tr)
+        emit({f"{label}_train_profile": prof})
+        emit({f"{label}_train_main_path": {
+            "steps": len(probe.rows), "final_step": out["final_step"],
+            "launches": launches, "final_loss": out["final_loss"],
+            "mean_step_s": statistics.mean(r["wall_s"] for r in probe.rows),
+            "device_events_a_step": prof["device_events"]}})
+        if len(probe.rows) != MOE_TRAIN_STEPS \
+                or out["final_step"] != MOE_TRAIN_STEPS \
+                or not all(math.isfinite(r["loss"]) for r in probe.rows):
+            raise RuntimeError(f"{label}: the trainer ran {len(probe.rows)} "
+                               f"steps, or a loss is not finite")
+        want = {n: e for n, (_, e) in kernels.items()}
+        if any(r["launches"] != want for r in probe.rows):
+            raise RuntimeError(f"{label}: launches a step "
+                               f"{[r['launches'] for r in probe.rows]} != "
+                               f"{want}")
+        del tr, probe
+        return launches
+    finally:
+        torch.cuda.empty_cache()
+        shutil.rmtree(MOE_TRAIN_CKPT_DIR, ignore_errors=True)
+
+
+def moe_training(fa, ssd, ops, tl, M, adamw, built, power_w: float, clock,
+                 flash_cases, flash_paths, ssd_cases, ssd_paths) -> None:
+    """Phases 17-19 (MOE_TRAIN_PHASES): for each cut model the refusal of
+    its full size by ``launch.train``, the flash kernel (and jamba's SSD
+    kernel) against its plain version at the training batch's shapes,
+    :func:`check_moe_train_step`, then :func:`moe_train`. Adds to the
+    kernel cases and the launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import moe
+    from repro_torch.models.kvcache import layer_specs
+    flash_usage = ptxas_usage(built[fa._SOURCE.name][1], FLASH_KERNEL)
+    ssd_usage = ptxas_usage(built[ssd._SOURCE.name][1], SSD_KERNEL_PREFIX)
+    for num, label, arch, layers, experts, batch in MOE_TRAIN_PHASES:
+        emit({f"{label}_full_training": refuse_full_training(arch)})
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers, moe=dataclasses
+                                  .replace(full.moe, n_experts=experts))
+        specs = layer_specs(cfg)
+        n_attn = sum(sp.mixer == "attn" for sp in specs)
+        # remat="block" runs every forward twice: the step and the
+        # backward's recompute
+        kernels = {"flash": (fa.flash_attention, 2 * n_attn)}
+        if n_attn < len(specs):
+            kernels["ssd"] = (ssd.ssd_scan, 2 * (len(specs) - n_attn))
+        name = (f"{label}_train_b{batch}_gqa{cfg.n_heads}to{cfg.n_kv_heads}"
+                f"_d{cfg.head_dim}")
+        flash_cases += check_flash(fa, cfg, flash_usage,
+                                   ((name, TRAIN_SEQ, None, True),), batch)
+        if cfg.ssm is not None:
+            ssd_cases[f"training_{label}_b{batch}_d{cfg.ssm.d_state}"] = \
+                check_ssd(ssd, cfg, ssd_usage, batch=batch)
+        run = RunConfig(arch=arch, attn_impl="flash", remat="block",
+                        seed=SEED, warmup_steps=2, total_steps=MOE_TRAIN_STEPS)
+        tokens = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               batch=batch, seed=SEED,
+                               device=DEVICE).next_batch()
+        check_moe_train_step(M, adamw, moe, cfg, run, tokens, kernels,
+                             f"{label}_train_step_check")
+        del tokens
+        launches = moe_train(tl, ops, cfg, run, batch, power_w, label,
+                             kernels)
+        flash_paths[f"{num} train {label}"] = launches["flash"]
+        if "ssd" in launches:
+            ssd_paths[f"{num} train {label}"] = launches["ssd"]
+        clock.mark(f"{num} train {label}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2496,6 +3000,12 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
 
     clock.mark("4 plan_batch windows")
+
+    # 4b. the per-leg torch scorer: plan(), plan_batch's per-job scan and
+    # rescore() with backend="torch" against the numpy backend
+    leg_scorer(tp)
+
+    clock.mark("4b per-leg scorer")
 
     # 5. oracle: sampled plans against the port's numpy plan_batch
     idxs = sorted({int(i) for i in
@@ -2646,7 +3156,13 @@ def main() -> int:
     moe_phases(fa, ssd, sl, M, built, power_limit_w(card), clock,
                flash_cases, flash_paths, ssd_cases, ssd_paths)
 
-    # 17. results
+    # 17-19. the moe and hybrid families trained at full width, depth and
+    # experts cut to one card: a train step on the kernel path against the
+    # plain path routing as it did, then three Trainer steps
+    moe_training(fa, ssd, ops, tl, M, adamw, built, power_limit_w(card),
+                 clock, flash_cases, flash_paths, ssd_cases, ssd_paths)
+
+    # 20. results
     worst = max(flash_cases, key=lambda c: c["rel_rms_err"])
     kernels.append(
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,

@@ -22,3 +22,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {dev}")
     return dev
+
+
+def require_free(device: torch.device, need: int, what: str) -> None:
+    """Raise ``MemoryError`` before anything is allocated if ``need``
+    bytes (``what`` takes them) exceed the free memory of ``device``, a
+    CUDA device; the CPU is not checked."""
+    if device.type != "cuda":
+        return
+    free, _ = torch.cuda.mem_get_info(device)
+    if need > free:
+        raise MemoryError(f"{what} take {need:,} bytes; {device} has "
+                          f"{free:,} bytes free")

@@ -8,10 +8,12 @@ from repro_torch.core.carbon.path import (Hop, NetworkPath, discover_path,
 from repro_torch.core.carbon.energy import (HostPowerModel, HOST_PROFILES,
                                             host_profile_for_endpoint,
                                             hop_power_w)
-from repro_torch.core.carbon.field import (CarbonField, FrozenField,
-                                           default_field,
+from repro_torch.core.carbon.field import (CarbonField, CarbonWindow,
+                                           FrozenField, default_field,
                                            install_frozen_default,
-                                           register_field_setup)
+                                           make_window,
+                                           register_field_setup, window_ci,
+                                           window_ci_torch, window_to)
 from repro_torch.core.carbon.score import (carbonscore, transfer_emissions_g,
                                            transfer_emissions_g_batch,
                                            transfer_emissions_g_reference,
@@ -23,8 +25,9 @@ __all__ = [
     "CITrace", "GridRegion", "REGIONS", "STATE_CARBON_INDEX", "get_region",
     "region_ci", "geolocate", "haversine_km", "IPInfo", "Hop", "NetworkPath",
     "discover_path", "path_ci", "HostPowerModel", "HOST_PROFILES",
-    "host_profile_for_endpoint", "hop_power_w", "CarbonField", "FrozenField",
-    "default_field", "install_frozen_default", "register_field_setup",
+    "host_profile_for_endpoint", "hop_power_w", "CarbonField", "CarbonWindow",
+    "FrozenField", "default_field", "install_frozen_default", "make_window",
+    "register_field_setup", "window_ci", "window_ci_torch", "window_to",
     "carbonscore", "transfer_emissions_g", "transfer_emissions_g_batch",
     "transfer_emissions_g_reference", "TransferLedger",
     "HostMetrics", "NetworkMetrics", "TransferMetrics", "Pmeter",

@@ -31,6 +31,7 @@ import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.carbon.energy import (HOP_CLASSES, HostPowerModel,
                                             classify_hop, hop_power_w)
@@ -384,6 +385,16 @@ class CarbonField:
         weights[-1] = rem
         return rr @ weights
 
+    def path_power_w(self, path: NetworkPath, sender: HostPowerModel,
+                     receiver: HostPowerModel, throughput_gbps: float, *,
+                     parallelism: int = 1, concurrency: int = 1) -> float:
+        """Total device power (W) drawn along a path at a given rate — the
+        fleet controller's per-step emission accounting multiplies this by
+        the measured path CI (the hop-resolved integral stays the planner's
+        job; per-device sub-metering bands are ±2%, see ``hop_ci_matrix``)."""
+        return float(self._device_weights(path, sender, receiver,
+                                          throughput_gbps, parallelism,
+                                          concurrency).sum())
 
     def _device_weights(self, path: NetworkPath, sender: HostPowerModel,
                         receiver: HostPowerModel, throughput_gbps: float,
@@ -556,3 +567,146 @@ def default_field() -> CarbonField:
         _DEFAULT = CarbonField()
         _DEFAULT_PID = os.getpid()
     return _DEFAULT
+
+
+# --- the dense window view ---------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class CarbonWindow:
+    """A dense view of the field over [t0, t0 + hours·1h).
+
+    All hashing happens at construction; ``window_ci`` (numpy) and
+    ``window_ci_torch`` are then pure array math. :func:`window_to` moves
+    the arrays onto a torch device once, for the per-leg scorer.
+    """
+    zones: Tuple[str, ...]
+    t0: float
+    hours: int
+    base: np.ndarray          # (Z,)
+    amp: np.ndarray           # (Z,)
+    dip: np.ndarray           # (Z,)
+    noise_amp: np.ndarray     # (Z,)
+    peak: np.ndarray          # (Z,)
+    noise: np.ndarray         # (Z, hours) hashed weather band in [-1, 1)
+    cal_a: float
+    cal_b: float
+
+    def zone_index(self, zone: str) -> int:
+        return self.zones.index(zone)
+
+
+def make_window(zones: Sequence[str], t0: float, hours: int,
+                field: Optional[CarbonField] = None) -> CarbonWindow:
+    f = field or default_field()
+    hour0 = int(t0 // 3600.0)
+    hour_idx = np.arange(hour0, hour0 + hours)
+    noise = np.stack([(f._zone_noise.lookup(z, hour_idx) - 0.5) * 2.0
+                      for z in zones])
+    regs = [REGIONS[z] for z in zones]
+    a, b = get_calibration()
+    return CarbonWindow(
+        zones=tuple(zones), t0=float(t0), hours=int(hours),
+        base=np.array([r.base_ci for r in regs]),
+        amp=np.array([r.diurnal_amp for r in regs]),
+        dip=np.array([r.solar_dip for r in regs]),
+        noise_amp=np.array([r.noise for r in regs]),
+        peak=np.array([r.peak_hour for r in regs]),
+        noise=noise, cal_a=a, cal_b=b)
+
+
+def _window_consts(w: CarbonWindow) -> Tuple[float, float, float, int]:
+    """The absolute anchor folded into host-side f64 constants:
+    (hour_frac_s, h_of_day0, day_frac_s, dow0)."""
+    return (w.t0 - 3600.0 * math.floor(w.t0 / 3600.0),
+            (w.t0 / 3600.0) % 24.0,
+            w.t0 - 86400.0 * math.floor(w.t0 / 86400.0),
+            int(w.t0 // 86400.0) % 7)
+
+
+def window_ci(w: CarbonWindow, zone_idx, rel_ts, *,
+              calibrated: bool = True) -> np.ndarray:
+    """CI(zone, w.t0 + rel_ts) from a precomputed window as numpy array
+    ops. ``zone_idx`` and ``rel_ts`` broadcast; ``rel_ts`` is seconds since
+    ``w.t0``. Times outside the window clamp to its edge hours."""
+    rel = np.asarray(rel_ts)
+    zone_idx = np.asarray(zone_idx)
+    hour_frac_s, h_of_day0, day_frac_s, dow0 = _window_consts(w)
+    hour_rel = np.clip(
+        np.floor((rel + hour_frac_s) / 3600.0).astype(np.int32),
+        0, w.hours - 1)
+    h_of_day = (h_of_day0 + rel / 3600.0) % 24.0
+    dow = (dow0 + np.floor((rel + day_frac_s) / 86400.0).astype(np.int32)) % 7
+    base = np.asarray(w.base)[zone_idx]
+    amp = np.asarray(w.amp)[zone_idx]
+    dip = np.asarray(w.dip)[zone_idx]
+    namp = np.asarray(w.noise_amp)[zone_idx]
+    peak = np.asarray(w.peak)[zone_idx]
+    v = base + amp * np.cos(2 * np.pi * (h_of_day - peak) / 24.0)
+    v = v - dip * np.exp(-0.5 * ((h_of_day - 13.0) / 2.5) ** 2)
+    v = np.where((dow == 5) | (dow == 6), v * 0.94, v)
+    v = v + namp * np.asarray(w.noise)[zone_idx, hour_rel]
+    v = np.maximum(v, 1.0)
+    if calibrated:
+        v = np.maximum(w.cal_a * v + w.cal_b, 0.5)
+    return v
+
+
+# f32 constants of the CI chain, rounded once as the reference's weakly
+# typed Python floats are: exact f32 values make each torch op round the
+# same whether it computes in f32 or widens internally
+TWO_PI_F32 = float(np.float32(2 * np.pi))
+WEEKEND_F32 = float(np.float32(0.94))
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded as one IEEE division on every device. On CUDA,
+    torch turns a division by a Python scalar into a multiplication by
+    its reciprocal, which is off by an ulp and can move
+    ``floor((t + d) / 86400)`` across a day boundary; a 0-dim tensor on
+    the same device keeps the true division."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+_WINDOW_ARRAYS = ("base", "amp", "dip", "noise_amp", "peak", "noise")
+
+
+def window_to(w: CarbonWindow, device: Union[str, torch.device]
+              ) -> CarbonWindow:
+    """``w`` with its arrays as f32 tensors on ``device`` (one copy), for
+    :func:`window_ci_torch` calls that should not copy them again."""
+    return dataclasses.replace(w, **{
+        k: torch.as_tensor(np.asarray(getattr(w, k), dtype=np.float32),
+                           device=device) for k in _WINDOW_ARRAYS})
+
+
+def window_ci_torch(w: CarbonWindow, zone_idx, rel_ts, *,
+                    device: Union[str, torch.device],
+                    calibrated: bool = True) -> torch.Tensor:
+    """:func:`window_ci` as torch ops on ``device``: an f32 tensor.
+
+    The time and index math runs in f64 with true divisions, so hour and
+    day boundaries land where numpy puts them on every device; the CI
+    value chain runs in f32, as the reference's jitted scorer and the
+    batched lattice do. ``w``'s arrays are copied to ``device`` unless
+    they are there already (:func:`window_to`)."""
+    dev = torch.device(device)
+    rel = torch.as_tensor(rel_ts, dtype=torch.float64, device=dev)
+    zi = torch.as_tensor(zone_idx, dtype=torch.int64, device=dev)
+    col = {k: torch.as_tensor(getattr(w, k), dtype=torch.float32,
+                              device=dev) for k in _WINDOW_ARRAYS}
+    hour_frac_s, h_of_day0, day_frac_s, dow0 = _window_consts(w)
+    hour_rel = torch.floor(true_div(rel + hour_frac_s, 3600.0)).long() \
+        .clamp(0, w.hours - 1)
+    hod = torch.remainder(h_of_day0 + true_div(rel, 3600.0), 24.0).float()
+    dow = torch.remainder(
+        dow0 + torch.floor(true_div(rel + day_frac_s, 86400.0)).long(), 7)
+    peak = col["peak"][zi]
+    v = col["base"][zi] + col["amp"][zi] * torch.cos(
+        true_div(TWO_PI_F32 * (hod - peak), 24.0))
+    v = v - col["dip"][zi] * torch.exp(-0.5 * true_div(hod - 13.0, 2.5) ** 2)
+    v = torch.where((dow == 5) | (dow == 6), v * WEEKEND_F32, v)
+    v = v + col["noise_amp"][zi] * col["noise"][zi, hour_rel]
+    v = torch.clamp_min(v, 1.0)
+    if calibrated:
+        v = torch.clamp_min(float(np.float32(w.cal_a)) * v
+                            + float(np.float32(w.cal_b)), 0.5)
+    return v

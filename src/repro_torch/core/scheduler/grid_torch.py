@@ -1,14 +1,17 @@
-"""Fleet-batched planner scoring on torch: the lattice path.
+"""Planner grid scoring on torch: the fleet lattice and the per-leg scorer.
 
-The counterpart of the reference's ``grid_jax.py`` fleet scorer
+The counterpart of the reference's ``grid_jax.py``. Its fleet scorer
 (``batch_cell_emissions``): the (job x FTN x replica x slot) grids of many
 jobs are padded/masked into one stacked cell table (the numpy builder
 below, copied from the reference) and scored with plain torch ops on the
 planner's device. This is the ``batch_backend="torch"`` path and the one
 ``TorchCarbonPlanner.rescore_batch`` uses for large sweeps; the fused
-CUDA kernels of ``grid_cuda`` consume the same tables.
+CUDA kernels of ``grid_cuda`` consume the same tables. Its per-leg scorer
+(:class:`TorchGridScorer`, the reference's ``JaxGridScorer``) scores all
+start slots of one leg for ``plan()`` and ``rescore()`` with
+``backend="torch"``, on the ``make_window`` / ``window_ci_torch`` view.
 
-Layer contract: **numpy is the pinned oracle**. The lattice recomputes
+Layer contract: **numpy is the pinned oracle**. Both paths recompute
 what ``CarbonField.transfer_emissions_g`` defines, with the reference's
 precision split: time and index math in f64 (hour boundaries and
 day-of-week flips land exactly where numpy puts them), the CI value chain
@@ -24,10 +27,16 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.carbon.field import CarbonField
+from repro_torch.core.carbon.energy import HostPowerModel
+from repro_torch.core.carbon.field import (TWO_PI_F32, WEEKEND_F32,
+                                           CarbonField, CarbonWindow,
+                                           default_field, make_window,
+                                           true_div, window_ci_torch,
+                                           window_to)
 from repro_torch.core.carbon.intensity import REGIONS, get_calibration
 from repro_torch.core.carbon.path import NetworkPath
 
+_WINDOW_HOURS = 24 * 14                # per-anchor horizon (2 weeks)
 _GRID_BUCKET = 512                     # rate-grid length rounding
 
 # --- fleet-batched scoring -------------------------------------------------
@@ -235,22 +244,9 @@ def _chunk_tables(field: CarbonField, cells: Sequence[CellTask], *,
 
 
 
-# f32 constants of the CI chain, rounded once as the reference's weakly
-# typed Python floats are: exact f32 values make each torch op round the
-# same whether it computes in f32 or widens internally
-TWO_PI_F32 = float(np.float32(2 * np.pi))
-WEEKEND_F32 = float(np.float32(0.94))
+# the hop band's f32 constants (the zone chain's are in ``field``)
 BAND_F32 = float(np.float32(0.02))
 HOP_NOISE_F32 = float(np.float32(0.005))
-
-
-def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
-    """``x / c`` rounded as one IEEE division on every device. On CUDA,
-    torch turns a division by a Python scalar into a multiplication by
-    its reciprocal, which is off by an ulp and can move
-    ``floor((t + d) / 86400)`` across a day boundary; a 0-dim tensor on
-    the same device keeps the true division."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
 @dataclasses.dataclass
@@ -406,3 +402,126 @@ def batch_cell_emissions(field: CarbonField, cells: Sequence[CellTask], *,
         for row, (j, c) in enumerate(zip(chunk, sub)):
             out[j] = emis[row, :len(c.legs), :c.n_slots]
     return out                         # type: ignore[return-value]
+
+
+# --- the per-leg scorer (plan() and rescore() with backend="torch") ---------
+
+class _PathWindow:
+    """Dense view of one path over [t0, t0 + hours h) on the scorer's
+    device: the zone window plus the per-hop sub-metering band and hourly
+    noise that turn zone CI into device CI (``CarbonField.hop_ci_matrix``
+    semantics). All noise is hashed on the host when the window is built
+    and carried to the device once."""
+
+    def __init__(self, field: CarbonField, path: NetworkPath, t0: float,
+                 hours: int, device: torch.device):
+        zones = tuple(dict.fromkeys(h.zone for h in path.hops))
+        self.window: CarbonWindow = window_to(
+            make_window(zones, t0, hours, field), device)
+        self.t0, self.hours = float(t0), int(hours)
+        hour0 = int(t0 // 3600.0)
+        hour_idx = np.arange(hour0, hour0 + hours)
+        self.zone_idx = torch.as_tensor(
+            [zones.index(h.zone) for h in path.hops], dtype=torch.int64,
+            device=device)
+        self.hop_band = torch.as_tensor(
+            np.array([field._hop_band(h.ip) for h in path.hops],
+                     dtype=np.float32), device=device)
+        self.hop_noise = torch.as_tensor(np.stack(
+            [field._hop_noise.lookup(h.ip, hour_idx) - 0.5
+             for h in path.hops]).astype(np.float32), device=device)
+
+    def covers(self, t_lo: float, t_hi: float) -> bool:
+        return (t_lo >= self.t0
+                and t_hi <= self.t0 + 3600.0 * self.hours - 1e-6)
+
+
+def leg_rate(pw: _PathWindow, w_dev: torch.Tensor,
+             rel: torch.Tensor) -> torch.Tensor:
+    """The emission rate r = w_dev . device CI / 3.6e6 (g/s, f64) of one
+    path at ``rel`` (f64 seconds since ``pw.t0``), on the window's device:
+    zone CI from the window in f32, times the hop band, weighted in f64.
+    The hour index is f64 time math with a true division, as numpy's."""
+    zci = window_ci_torch(pw.window, pw.zone_idx[:, None], rel[None, :],
+                          device=rel.device)                         # (H,T)
+    hour_frac = pw.t0 - 3600.0 * math.floor(pw.t0 / 3600.0)
+    hour_rel = torch.floor(true_div(rel + hour_frac, 3600.0)).long() \
+        .clamp(0, pw.hours - 1)
+    band = (1.0 + BAND_F32 * pw.hop_band[:, None]
+            + HOP_NOISE_F32 * pw.hop_noise[:, hour_rel])
+    return true_div(w_dev @ (zci * band).double(), 3.6e6)
+
+
+class TorchGridScorer:
+    """The per-leg backend of ``TorchCarbonPlanner(backend="torch")``: a
+    per-planner cache of path windows on ``device`` (``cuda`` unless
+    given), each anchored at an hour boundary with a two-week horizon and
+    rebuilt when a leg's grid leaves it.
+
+    Counters: ``windows_built`` (anchors), ``legs`` (legs scored on the
+    device) and ``numpy_legs`` (legs whose starts sit off a common dt_s
+    grid, which go to the numpy field as in the reference; the planner's
+    slot scans are always aligned)."""
+
+    def __init__(self, field: Optional[CarbonField] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.field = field or default_field()
+        self.device = resolve_device(device)
+        self._windows: Dict[Tuple, _PathWindow] = {}
+        self.windows_built = 0
+        self.legs = 0
+        self.numpy_legs = 0
+
+    def _path_window(self, path: NetworkPath, t_lo: float,
+                     t_hi: float) -> _PathWindow:
+        key = (path.src, path.dst, path.hops)
+        pw = self._windows.get(key)
+        if pw is None or not pw.covers(t_lo, t_hi):
+            t0 = 3600.0 * math.floor(t_lo / 3600.0)
+            hours = max(int(math.ceil((t_hi - t0) / 3600.0)) + 1,
+                        _WINDOW_HOURS)
+            hours = int(math.ceil(hours / _WINDOW_HOURS)) * _WINDOW_HOURS
+            pw = _PathWindow(self.field, path, t0, hours, self.device)
+            self._windows[key] = pw
+            self.windows_built += 1
+        return pw
+
+    def leg_emissions_g(self, path: NetworkPath, sender: HostPowerModel,
+                        receiver: HostPowerModel, bytes_moved: float,
+                        t0s: np.ndarray, throughput_gbps: float, *,
+                        parallelism: int = 1, concurrency: int = 1,
+                        dt_s: float = 60.0) -> np.ndarray:
+        """``CarbonField.transfer_emissions_g`` for slot-aligned starts:
+        the rate on the device's dt_s grid, its f64 prefix sum and each
+        start's slot integral, one copy of the emissions to the host."""
+        t0s = np.atleast_1d(np.asarray(t0s, dtype=np.float64))
+        if throughput_gbps <= 0:
+            return np.full(t0s.shape, np.inf)
+        duration_s = bytes_moved * 8.0 / (throughput_gbps * 1e9)
+        n_steps = max(int(math.ceil(duration_s / dt_s - 1e-12)), 1)
+        rem = duration_s - (n_steps - 1) * dt_s
+        offsets = (t0s - t0s.min()) / dt_s
+        k = np.rint(offsets).astype(np.int64)
+        if offsets.size and np.max(np.abs(offsets - k)) >= 1e-9:
+            self.numpy_legs += 1
+            return self.field.transfer_emissions_g(
+                path, sender, receiver, bytes_moved, t0s, throughput_gbps,
+                parallelism=parallelism, concurrency=concurrency, dt_s=dt_s)
+        n_grid = int(k.max()) + n_steps
+        n_pad = int(math.ceil(n_grid / _GRID_BUCKET)) * _GRID_BUCKET
+        t_lo = float(t0s.min())
+        pw = self._path_window(path, t_lo, t_lo + n_pad * dt_s)
+        dev, f64 = self.device, torch.float64
+        w_dev = torch.as_tensor(self.field._device_weights(
+            path, sender, receiver, throughput_gbps, parallelism,
+            concurrency), dtype=f64, device=dev)
+        rel = (t_lo - pw.t0) + dt_s * torch.arange(n_pad, dtype=f64,
+                                                   device=dev)
+        r = leg_rate(pw, w_dev, rel)
+        prefix = torch.cat([torch.zeros(1, dtype=f64, device=dev),
+                            torch.cumsum(r[:n_grid], 0)])
+        lo = torch.as_tensor(k, device=dev)
+        hi = lo + (n_steps - 1)
+        self.legs += 1
+        return ((prefix[hi] - prefix[lo]) * dt_s
+                + r[hi] * rem).cpu().numpy()

@@ -40,7 +40,7 @@ from repro_torch.core.carbon.score import (carbonscore, transfer_emissions_g,
 from repro_torch.core.obs.metrics import log_bounds
 from repro_torch.core.scheduler import grid_cuda
 from repro_torch.core.scheduler.grid_torch import (_MAX_GRID, CellTask,
-                                                   LegTask,
+                                                   LegTask, TorchGridScorer,
                                                    batch_cell_emissions)
 from repro_torch.core.scheduler.overlay import FTN
 from repro_torch.core.scheduler.time_shift import expected_transfer_ci
@@ -107,16 +107,19 @@ def _plan_cost(sla: SLA, emissions_g: float, finish_rel_s) -> float:
 
 
 class TorchCarbonPlanner:
-    """The joint planner on torch. ``plan()``/``rescore()`` run the numpy
-    per-leg scan; ``plan_batch()`` scores whole admission windows on
-    ``device`` (``cuda`` unless given; without a GPU pass ``"cpu"``, or
-    construction raises).
+    """The joint planner on torch. ``plan()``/``rescore()`` score each leg
+    on ``backend``: ``"numpy"`` (default), the pinned oracle field, or
+    ``"torch"``, ``grid_torch.TorchGridScorer`` on ``device``;
+    ``plan_batch()`` scores whole admission windows on ``device``
+    (``cuda`` unless given; without a GPU pass ``"cpu"``, or construction
+    raises).
 
     ``batch_backend`` picks the full-scan path of ``plan_batch``:
     ``"fused"`` (default) runs the two CUDA kernels of ``grid_cuda``
     (their plain torch versions on the CPU), ``"torch"`` the lattice of
-    ``grid_torch``, ``"numpy"`` the per-job oracle scan. A kernel that
-    fails to build or launch raises: there is no fallback.
+    ``grid_torch``, ``"numpy"`` the per-job scan of ``plan()`` (on
+    ``backend``'s scorer). A kernel that fails to build or launch raises:
+    there is no fallback.
     """
 
     def __init__(self, ftns: Sequence[FTN],
@@ -124,8 +127,12 @@ class TorchCarbonPlanner:
                  slot_s: float = 3600.0,
                  ci_fn: Optional[Callable[[NetworkPath, float], float]] = None,
                  field: Optional[CarbonField] = None,
+                 backend: str = "numpy",
                  batch_backend: str = "fused",
                  device: Optional[Union[str, torch.device]] = None):
+        if backend not in ("numpy", "torch"):
+            raise ValueError(f"backend must be 'numpy' or 'torch', got "
+                             f"{backend!r}")
         if batch_backend not in ("numpy", "torch", "fused"):
             raise ValueError(f"batch_backend must be 'numpy', 'torch' or "
                              f"'fused', got {batch_backend!r}")
@@ -136,6 +143,8 @@ class TorchCarbonPlanner:
         self.slot_s = slot_s
         self.ci_fn = ci_fn             # forecast hook; None = oracle trace
         self.field = field or default_field()
+        self.backend = backend
+        self._scorer: Optional[TorchGridScorer] = None
         self.batch_backend = batch_backend
         # drift hook (the fleet controller's forecast-shock nowcast): a
         # (path, start_times) -> multiplier-array applied to the forecast
@@ -161,11 +170,13 @@ class TorchCarbonPlanner:
         ``emission_scale_fn`` is the owning controller's bound hook, which
         the controller re-wires in its own ``__setstate__``, so a planner
         never drags a stale owner through a checkpoint; ``device`` travels
-        as its name. The planner holds no device tensors: the batch paths
-        build their tables per call."""
+        as its name. The per-leg scorer, which holds device tensors, is
+        dropped and rebuilt on first use; the batch paths build their
+        tables per call."""
         d = self.__dict__.copy()
         d["emission_scale_fn"] = None
         d["device"] = str(self.device)
+        d["_scorer"] = None
         return d
 
     def __setstate__(self, d: dict) -> None:
@@ -175,11 +186,24 @@ class TorchCarbonPlanner:
         self.__dict__.update(d)
         self.device = torch.device(d["device"])
 
+    @property
+    def scorer(self) -> Optional[TorchGridScorer]:
+        """The per-leg torch scorer (``backend="torch"``), built on the
+        planner's device at first use; None on the numpy backend."""
+        if self.backend == "torch" and self._scorer is None:
+            self._scorer = TorchGridScorer(self.field, device=self.device)
+        return self._scorer
+
     def _leg_emissions(self, path: NetworkPath, receiver, job: TransferJob,
                        ts: np.ndarray, gbps: float) -> np.ndarray:
-        """Emission integral for one leg over all candidate starts, on
-        the numpy field (the per-leg path of ``plan()``/``rescore()``)."""
-        emis = self.field.transfer_emissions_g(
+        """Emission integral for one leg over all candidate starts — the
+        grid-scoring hot path of ``plan()``/``rescore()``, dispatched by
+        backend (numpy is the pinned oracle; torch runs the same integral
+        on the planner's device)."""
+        scorer = self.scorer
+        score = (scorer.leg_emissions_g if scorer is not None
+                 else self.field.transfer_emissions_g)
+        emis = score(
             path, HOST_PROFILES["storage_frontend"], receiver,
             job.size_bytes, ts, gbps,
             parallelism=job.parallelism, concurrency=job.concurrency)

@@ -20,7 +20,7 @@ import sys
 
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import require_free, resolve_device
 from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.params import count_params, torch_dtype
@@ -33,13 +33,8 @@ SERVED_ARCHS = tuple(a for a in ARCHS
 def check_fits(cfg: ModelConfig, device: torch.device) -> None:
     """Raise ``MemoryError`` if ``cfg``'s weights exceed the free memory
     of ``device`` (a CUDA device; the CPU is not checked)."""
-    if device.type != "cuda":
-        return
-    need = count_params(cfg) * torch_dtype(cfg.dtype).itemsize
-    free, _ = torch.cuda.mem_get_info(device)
-    if need > free:
-        raise MemoryError(f"{cfg.name}'s {cfg.dtype} weights take {need:,} "
-                          f"bytes; {device} has {free:,} bytes free")
+    require_free(device, count_params(cfg) * torch_dtype(cfg.dtype).itemsize,
+                 f"{cfg.name}'s {cfg.dtype} weights")
 
 
 def main(argv=None) -> int:

@@ -58,16 +58,36 @@ def ieee_f32():
             m.allow_tf32 = prev
 
 
+class _RouterLogits(torch.autograd.Function):
+    """x @ w in f32 with the forward's and the backward's products both
+    under :func:`ieee_f32`, so the router's gradient does not follow the
+    process's TF32 switch where its logits do not."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        with ieee_f32():
+            return x @ w
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        with ieee_f32():
+            gx = g @ w.t() if ctx.needs_input_grad[0] else None
+            gw = x.t() @ g if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def route(router_w: torch.Tensor, x: torch.Tensor, cfg: MoEConfig
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [T, d] -> (top_p [T, k] f32, top_i [T, k], aux scalar f32).
 
-    The router runs in true f32; top-k is a stable descending sort, so a
-    tie goes to the lower expert index, as ``lax.top_k``. The choices are
-    renormalised; aux is the Switch load-balancing loss E * sum(me * ce)
-    over the mean probability and the top-1 share of each expert."""
-    with ieee_f32():
-        logits = x.float() @ router_w.float()
+    The router runs in true f32, its backward too; top-k is a stable
+    descending sort, so a tie goes to the lower expert index, as
+    ``lax.top_k``. The choices are renormalised; aux is the Switch
+    load-balancing loss E * sum(me * ce) over the mean probability and the
+    top-1 share of each expert."""
+    logits = _RouterLogits.apply(x.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)                       # [T, E]
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :cfg.top_k], top_i[:, :cfg.top_k]

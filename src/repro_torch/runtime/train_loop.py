@@ -39,7 +39,8 @@ from repro_torch.core.scheduler.planner import TorchCarbonPlanner
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.models.model import Transformer, build_model
 from repro_torch.optim.adamw import adamw_init
-from repro_torch.optim.localsgd import CarbonSyncController, outer_init
+from repro_torch.optim.localsgd import (CarbonSyncController,
+                                        OuterOptState, outer_init)
 from repro_torch.runtime.steps import make_train_step
 
 
@@ -123,7 +124,18 @@ class Trainer:
         if self.ckpt.has_checkpoint():
             self.start_step = self._restore()
             self.events.append(f"restored@{self.start_step}")
-        self.outer = outer_init(self.params)
+        self._outer: Optional[OuterOptState] = None
+
+    @property
+    def outer(self) -> OuterOptState:
+        """The local-SGD outer state (an f32 anchor and momentum, 8 bytes a
+        parameter), built from the parameters at its first read. The
+        reference builds it with the trainer and never reads it in the
+        loop; on one card that would take half again the 16 bytes a
+        parameter of weights, gradients and AdamW state."""
+        if self._outer is None:
+            self._outer = outer_init(self.params)
+        return self._outer
 
     @torch.no_grad()
     def _restore(self) -> int:

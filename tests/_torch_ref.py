@@ -9,7 +9,7 @@ reference's own planner on the cases below, and writes what its kernels
 saw and returned to an ``.npz`` file. The alias lives and dies with that
 process: the test process never sees it.
 
-    python tests/_torch_ref.py OUT.npz grid|fused|planner
+    python tests/_torch_ref.py OUT.npz grid|fused|planner|legs
 
 Cases are plain data, built into jobs by :func:`make_jobs` against either
 package's planner module, so both implementations plan identical inputs.
@@ -132,6 +132,59 @@ def drift(path, ts):
     """A deterministic emission_scale_fn: works on either package's
     paths (it reads only the hop count and the times)."""
     return 1.0 + 0.1 * np.sin(np.asarray(ts) / 7200.0 + path.n_hops)
+
+
+# --- the per-leg scorer (tests/test_torch_legscore.py) ----------------------
+# Legs scored one after another on one scorer, so later legs reuse or
+# re-anchor earlier windows: (name, routes, size_bytes, gbps, starts) with
+# routes a tuple of (src, dst) whose hops are joined (the 11-hop path is
+# uc->tacc's 8 and three transit hops of tacc->site_or) and starts
+# (first offset from T0 s, spacing s, count). "boundary" crosses an hour,
+# a day and a weekday/weekend boundary (T0 + 3 d starts day-of-week 5);
+# "long_grid" needs a 672-hour window; "late" re-anchors uc->tacc 30
+# days on; "unaligned" starts off a common 60 s grid go to the numpy field.
+LEG_CASES = (
+    ("h3", (("site_ca", "site_or"),), 300e9, 5.0, (0.0, 3600.0, 12)),
+    ("h4", (("uc", "m1"),), 120e9, 1.2, (1800.0, 3600.0, 6)),
+    ("h5", (("tacc", "site_or"),), 300e9, 9.0, (0.0, 3600.0, 24)),
+    ("h6", (("tacc", "m1"),), 40e9, 1.0, (600.0, 3600.0, 3)),
+    ("h8", (("uc", "tacc"),), 300e9, 5.0, (0.0, 3600.0, 48)),
+    ("h11", (("uc", "tacc"), ("tacc", "site_or")), 500e9, 7.5,
+     (0.0, 3600.0, 20)),
+    ("boundary", (("uc", "tacc"),), 2000e9, 5.0,
+     (3 * 86400.0 - 5400.0, 600.0, 16)),
+    ("long_grid", (("uc", "tacc"),), 30e12, 0.2, (0.0, 3600.0, 24)),
+    ("late", (("uc", "tacc"),), 300e9, 5.0, (30 * 86400.0, 3600.0, 12)),
+    ("unaligned", (("uc", "tacc"),), 300e9, 5.0, (0.0, 1000.5, 3)),
+    ("single", (("tacc", "m1"),), 7e9, 2.5, (86400.0 - 60.0, 3600.0, 1)),
+    ("zero_gbps", (("uc", "tacc"),), 300e9, 0.0, (0.0, 3600.0, 4)),
+)
+LEG_RECEIVER = "cascade_lake"
+LEG_PAR, LEG_CON = 4, 2
+
+
+def leg_path(path_mod, routes):
+    """One route's path, or several routes' hops joined (each later
+    route's three hops after its source), from either package."""
+    first = path_mod.discover_path(*routes[0])
+    hops = tuple(first.hops)
+    for src, dst in routes[1:]:
+        hops += tuple(path_mod.discover_path(src, dst).hops[1:4])
+    return path_mod.NetworkPath(first.src, routes[-1][1], hops)
+
+
+def leg_starts(starts) -> np.ndarray:
+    off, step, n = starts
+    return T0 + off + step * np.arange(n)
+
+
+# tests/test_controlplane.py's per-leg backend cases (the planner_scan job,
+# four jobs at half-hour submissions) and the edge cases with carbon
+# budgets and an all-infeasible job, planned with the per-leg scorer
+LEG_PLAN_JOB = ("jx", 300e9, ("uc", "m1"), "tacc", 48 * 3600.0, None, T0)
+LEG_PLAN_BATCH = ([(f"jb{i}", (50 + 70 * i) * 1e9, ("uc",), "tacc",
+                    24 * 3600.0, None, T0 + i * 1800.0) for i in range(4)]
+                  + EDGE_CASES["carbon_budget"] + EDGE_CASES["all_masked"])
 
 
 # --- the fleet control plane ------------------------------------------------
@@ -605,9 +658,43 @@ def _child_planner(out: Dict[str, np.ndarray]) -> None:
             out[f"pallas/{'drift' if scaled else 'plain'}/{k}"] = v
 
 
+def _child_legs(out: Dict[str, np.ndarray]) -> None:
+    grid_jax, _ = _revive()
+    from repro.core.carbon import path as path_mod
+    from repro.core.carbon.energy import HOST_PROFILES
+    from repro.core.scheduler import overlay, planner
+    scorer = grid_jax.JaxGridScorer()
+    for name, routes, size, gbps, starts in LEG_CASES:
+        p = leg_path(path_mod, routes)
+        out[f"legs/{name}"] = scorer.leg_emissions_g(
+            p, HOST_PROFILES["storage_frontend"],
+            HOST_PROFILES[LEG_RECEIVER], size, leg_starts(starts), gbps,
+            parallelism=LEG_PAR, concurrency=LEG_CON)
+        pw = scorer._windows.get((p.src, p.dst, p.hops))
+        out[f"legs/{name}/window"] = np.array(
+            [pw.t0, pw.hours] if pw is not None else [-1.0, -1.0])
+    for scaled in (False, True):
+        pl = planner.CarbonPlanner(make_ftns(overlay, SCALE_FTNS),
+                                   backend="jax", batch_backend="numpy")
+        if scaled:
+            pl.emission_scale_fn = drift
+        tag = "drift" if scaled else "plain"
+        job = make_jobs(planner, [LEG_PLAN_JOB])[0]
+        for k, v in plan_arrays([pl.plan(job)]).items():
+            out[f"legplan/{tag}/plan/{k}"] = v
+        jobs = make_jobs(planner, LEG_PLAN_BATCH)
+        plans = pl.plan_batch(jobs)
+        for k, v in plan_arrays(plans).items():
+            out[f"legplan/{tag}/batch/{k}"] = v
+        pl.emission_scale_fn = drift if not scaled else None
+        re = [pl.rescore(j, p) for j, p in zip(jobs, plans) if p.feasible]
+        for k, v in plan_arrays(re).items():
+            out[f"legplan/{tag}/rescore/{k}"] = v
+
+
 if __name__ == "__main__":
     path, what = Path(sys.argv[1]), sys.argv[2]
     arrays: Dict[str, np.ndarray] = {}
     {"grid": _child_grid, "fused": _child_fused,
-     "planner": _child_planner}[what](arrays)
+     "planner": _child_planner, "legs": _child_legs}[what](arrays)
     np.savez(path, **arrays)
