@@ -16,7 +16,12 @@ and drives the port's paths:
   deployment: one ``plan()``, the 200-job batch through ``plan_batch``'s
   per-job scan and 32 re-scores under a drift hook, each equal to the
   numpy backend's cells with emissions and cost within 1e-4, no leg off
-  the card, ``plan()`` timed on both backends and profiled;
+  the card, ``plan()`` timed on both backends and profiled; then (4c) a
+  4096-job window on ``batch_backend="torch"`` with the lattice's cell
+  axis split over three copies of the card (three shards, which do not
+  divide the 64-cell bucket): tables within 1e-9 of unsplit, the same
+  plans, the numpy oracle's cells, and ``shard=MeshConfig(n_devices=2)``
+  resolving to the one card with the unsplit run's device events;
 * the fleet control plane's closed loop: ``examples/fleet_day.py``'s first
   act (4000 jobs over 24 simulated hours, a 4-shard ``ShardedFleet``, a 6x
   forecast shock at 11:00 for six hours) on the default fused backend,
@@ -79,7 +84,12 @@ and drives the port's paths:
   model's prefill shapes, ``Server`` answering 8 (jamba) or 4 requests of
   2048-token prompts with 32 new tokens, a profile of one prefill and
   three decode steps, and the MoE logit gate (see MOE_PHASES), which
-  prints each MoE layer's dropped assignments and top-k flips;
+  prints each MoE layer's dropped assignments and top-k flips; jamba and
+  kimi-k2 then run the same prompts under a 2 x 2 ``HostMesh`` of the
+  card (``"2d"`` rules: the MoE's expert-parallel branch, two token
+  shards at their own capacity, two model ranks), each MoE call held
+  against the single-device MoE of each shard, and under a 1 x 2 mesh,
+  whose cached logits must sit within 0.05 of the unmeshed ones;
 * the same three families trained at full width with depth and expert
   count cut to one card (phases 17-19, MOE_TRAIN_PHASES): jamba-v0.1-52b
   one 8-layer period with 3 of 16 experts at 2 x 2048 tokens,
@@ -90,7 +100,8 @@ and drives the port's paths:
   against the plain path routing as the kernel path chose (loss, aux,
   gradient norms; every recompute routing as its forward), then three
   ``Trainer`` steps with their seconds, tokens/s, peak memory, launches
-  and gCO2, and a profile of one more step.
+  and gCO2, and a profile of one more step; kimi-k2's cut also takes one
+  step under a 1 x 2 mesh (8 experts a rank), held to the unmeshed step.
 
 Every phase that fails raises, so the exit code is non-zero; without a
 CUDA device the script exits 2 and prints no result. Each phase prints its
@@ -2321,11 +2332,14 @@ def _moe_stats() -> dict:
             "cap_mismatch": 0, "keep_mismatch": 0}
 
 
-def plain_moe_group(p, xs, cfg, gated: bool, rec, st: dict):
+def plain_moe_group(p, xs, cfg, gated: bool, rec, st: dict,
+                    n_ranks: int = 1):
     """The plain MoE over one dispatch group xs [B, n, d]: with ``rec`` (a
     :class:`MoERecorder` call) its top-k choices, else the group's own.
     Adds the group's flips, drops and disagreements with ``rec`` to
-    ``st``."""
+    ``st``. With ``n_ranks`` the experts split into that many equal
+    ranges (the model ranks of a mesh): each range's f32 combine is cast
+    to xs's dtype before the sum over ranges, in order."""
     B, n, d = xs.shape
     T, k, E = B * n, cfg.top_k, cfg.n_experts
     xt = xs.reshape(T, d)
@@ -2364,7 +2378,9 @@ def plain_moe_group(p, xs, cfg, gated: bool, rec, st: dict):
         out = _plain_ffn(xt[sel // k], p.get("wg", p["wu"])[e], p["wu"][e],
                          p["wd"][e], gated)
         y[sel] = out.float() * w[sel, None]
-    y = y.reshape(T, k, d).sum(1).to(xs.dtype)
+    y, rank = y.reshape(T, k, d), (e_flat // (E // n_ranks)).reshape(T, k)
+    y = sum((y * (rank == r)[..., None]).sum(1).to(xs.dtype)
+            for r in range(n_ranks))
     for pre, on in (("shared", cfg.n_shared_experts), ("dense",
                                                         cfg.dense_residual)):
         if on:
@@ -2510,8 +2526,10 @@ def moe_serving(fa, ssd, sl, M, cfg, run, power_w: float, label: str,
     every Mamba-2 layer's), a profile of one prefill and three decode
     steps, then :func:`moe_logit_gate` on the first epoch's prompts and
     MAX_NEW - 1 seeded random tokens (a hybrid: MAX_NEW, so that its full
-    forward, 2080 = 65 x SSM_FULL_CHUNK positions, scans whole chunks).
-    Returns each kernel's launches over the serving path."""
+    forward, 2080 = 65 x SSM_FULL_CHUNK positions, scans whole chunks),
+    and for MOE_MESH_SERVE models :func:`moe_mesh_serving` on the same
+    prompts. Returns each kernel's launches over the serving path, and
+    over the meshed runs (None without them)."""
     from repro_torch.models.kvcache import layer_specs
     specs = layer_specs(cfg)
     n_attn = sum(s.mixer == "attn" for s in specs)
@@ -2533,9 +2551,13 @@ def moe_serving(fa, ssd, sl, M, cfg, run, power_w: float, label: str,
             cfg.ssm, chunk_size=SSM_FULL_CHUNK)), dict(srv.model.state_dict()))
     moe_logit_gate(M, srv.model, srv.run, tokens, fed, full_model=full,
                    label=f"{label}_logit_check")
+    mesh_launches = None
+    if label in MOE_MESH_SERVE:
+        mesh_launches = moe_mesh_serving(M, srv.model, srv.run, tokens, fed,
+                                         kernels, label)
     del srv, probe, full
     torch.cuda.empty_cache()
-    return launches
+    return launches, mesh_launches
 
 
 def moe_phases(fa, ssd, sl, M, built, power_w: float, clock, flash_cases,
@@ -2556,13 +2578,15 @@ def moe_phases(fa, ssd, sl, M, built, power_w: float, clock, flash_cases,
         if cfg.ssm is not None:
             ssd_cases[f"serving_{label}_d{cfg.ssm.d_state}"] = check_ssd(
                 ssd, cfg, ssd_usage, batch=SERVE_BATCH)
-        launches = moe_serving(
+        launches, mesh = moe_serving(
             fa, ssd, sl, M, cfg,
             RunConfig(arch=arch, attn_impl="flash", remat="none", seed=SEED),
             power_w, label, n_req)
-        flash_paths[f"{num} serve {label}"] = launches["flash"]
-        if "ssd" in launches:
-            ssd_paths[f"{num} serve {label}"] = launches["ssd"]
+        for name, got in (("", launches), (" under the mesh", mesh or {})):
+            if "flash" in got:
+                flash_paths[f"{num} serve {label}{name}"] = got["flash"]
+            if "ssd" in got:
+                ssd_paths[f"{num} serve {label}{name}"] = got["ssd"]
         clock.mark(f"{num} {label}")
 
 
@@ -2596,6 +2620,15 @@ MOE_TRAIN_CKPT_DIR = REPO / "build" / "chip_smoke_moe_ckpt"
 # moves the router's gradient norm by all of it
 # (tests/test_torch_moe_train.py).
 STEP_AUX_TOL_REL = 1e-4
+
+
+def switch_aux(probs, top_i):
+    """The Switch load-balancing aux E * sum(me * ce) of one token group,
+    written out again: the mean router probability and the top-1 share of
+    each expert."""
+    T, E = probs.shape
+    ce = torch.bincount(top_i[:, 0], minlength=E).float() / T
+    return E * torch.sum(probs.mean(0) * ce)
 
 
 class RouteReplay:
@@ -2653,9 +2686,7 @@ class RouteReplay:
             probs = torch.softmax(logits, dim=-1)
             top_p = probs.gather(1, top_i)
             top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
-            T, E = x.shape[0], cfg.n_experts
-            ce = torch.bincount(top_i[:, 0], minlength=E).float() / T
-            aux = E * torch.sum(probs.mean(0) * ce)
+            aux = switch_aux(probs, top_i)
             if id(w) not in seen:      # the forward; a recompute repeats it
                 seen.add(id(w))
                 with torch.no_grad():      # saves nothing for the backward
@@ -2887,6 +2918,11 @@ def moe_training(fa, ssd, ops, tl, M, adamw, built, power_w: float, clock,
                                device=DEVICE).next_batch()
         check_moe_train_step(M, adamw, moe, cfg, run, tokens, kernels,
                              f"{label}_train_step_check")
+        if label == MOE_MESH_TRAIN:
+            mesh = moe_mesh_train_step(M, adamw, cfg, run, tokens, kernels,
+                                       label)
+            flash_paths[f"{num} train {label} under the mesh"] = \
+                mesh["flash"]
         del tokens
         launches = moe_train(tl, ops, cfg, run, batch, power_w, label,
                              kernels)
@@ -2894,6 +2930,401 @@ def moe_training(fa, ssd, ops, tl, M, adamw, built, power_w: float, clock,
         if "ssd" in launches:
             ssd_paths[f"{num} train {label}"] = launches["ssd"]
         clock.mark(f"{num} train {label}")
+
+
+# --- 4c, 14, 16, 19: the mesh ------------------------------------------------
+#
+# One card, so nothing here buys speed. A device list that repeats the card
+# shows what the split paths compute: the planner's cell split is its
+# unsplit lattice, and the expert-parallel MoE (models/moe.py
+# ``expert_parallel``) is the single-device MoE of each token shard at that
+# shard's own capacity, each rank's combine cast to the model dtype before
+# the sum over ranks.
+SPLIT_DEVICES = 3              # does not divide the 64-cell bucket
+# Split tables against unsplit ones: stage 3 gathers each cell's rows
+# alone, so equal bits are expected; 1e-9 is the sweep's own bound.
+SPLIT_TOL_REL = 1e-9
+MOE_MESH_SERVE = ("jamba", "kimi")
+MOE_MESH_TRAIN = "kimi"
+
+
+def cell_split(tp, gt, ftns, job) -> dict:
+    """Phase 4c: window 0 of ``planner_scale`` (WINDOW jobs) planned with
+    ``plan_batch_torch`` on ``batch_backend="torch"`` three ways, each
+    run's tables recorded: unsplit; with the lattice's cell axis split over
+    SPLIT_DEVICES copies of the card (``gt.cell_emissions_on``); and with
+    ``shard=MeshConfig(platform="cuda", n_devices=2)``, which on one card
+    resolves to one device. Each run timed (host clock) and profiled
+    once (device events and ms). Gates: split tables within SPLIT_TOL_REL
+    of unsplit (bit-equal cells counted) and the same plans, 32 sampled
+    plans as the numpy oracle's (cells equal, emissions 1e-4), and the
+    MeshConfig run on one device with the unsplit run's device events and
+    tables bit for bit."""
+    planner = tp.TorchCarbonPlanner(ftns, device=DEVICE,
+                                    batch_backend="torch")
+    jobs = [job(i) for i in range(WINDOW)]
+    card = torch.empty(0, device=DEVICE).device
+    mesh_cfg = gt.MeshConfig(platform="cuda", n_devices=2)
+    real = tp.batch_cell_emissions
+    tables, plans, timing = {}, {}, {}
+
+    def split(field, cells, **kw):
+        kw.pop("shard")
+        return gt.cell_emissions_on(field, cells, [card] * SPLIT_DEVICES,
+                                    **kw)
+
+    runs = {"unsplit": (real, {}), "split": (split, {}),
+            "mesh_config": (real, {"shard": mesh_cfg})}
+    try:
+        for name, (score, kw) in runs.items():
+            def recorded(field, cells, _n=name, _f=score, **k):
+                tables[_n] = _f(field, cells, **k)
+                return tables[_n]
+            tp.batch_cell_emissions = recorded
+            _sync()
+            t0 = time.perf_counter()
+            plans[name] = planner.plan_batch_torch(jobs, **kw)
+            _sync()
+            wall = time.perf_counter() - t0
+            timing[name] = {"wall_s": wall, **device_events(
+                lambda: planner.plan_batch_torch(jobs, **kw))}
+    finally:
+        tp.batch_cell_emissions = real
+    base = tables["unsplit"]
+
+    def against_unsplit(got) -> dict:
+        rel, equal = 0.0, 0
+        for g, w in zip(got, base):
+            equal += int(np.array_equal(g, w))
+            rel = max(rel, float(np.max(np.abs(g - w))
+                                 / max(np.max(np.abs(w)), 1e-300)))
+        return {"cells": len(got), "bit_equal_cells": equal,
+                "max_rel_err": rel}
+
+    idxs = sorted({int(i) for i in np.linspace(0, WINDOW - 1,
+                                               N_SAMPLED).round()})
+    oracle = tp.TorchCarbonPlanner(ftns, device=DEVICE,
+                                   batch_backend="numpy").plan_batch(
+        [jobs[i] for i in idxs])
+    res = {"jobs": WINDOW, "cells": planner.last_batch_cells,
+           "split_devices": [str(card)] * SPLIT_DEVICES,
+           "split_tables": against_unsplit(tables["split"]),
+           "split_vs_unsplit_plans": plan_diffs(plans["split"],
+                                                plans["unsplit"]),
+           "split_vs_numpy_sampled": plan_diffs(
+               [plans["split"][i] for i in idxs], oracle),
+           "mesh_config": dataclasses.asdict(mesh_cfg),
+           "mesh_config_devices": [str(d) for d in mesh_cfg.devices()],
+           "mesh_config_tables": against_unsplit(tables["mesh_config"]),
+           "mesh_config_vs_unsplit_plans": plan_diffs(
+               plans["mesh_config"], plans["unsplit"]),
+           "timing": timing, "tol_rel": SPLIT_TOL_REL}
+    emit({"cell_split": res})
+    n = len(base)
+    if not (res["split_tables"]["cells"] == n > 0
+            and res["split_tables"]["max_rel_err"] <= SPLIT_TOL_REL
+            and res["split_vs_unsplit_plans"]["cell_mismatches"] == 0
+            and res["split_vs_unsplit_plans"]["max_emis_rel_err"]
+            <= SPLIT_TOL_REL
+            and res["split_vs_numpy_sampled"]["cell_mismatches"] == 0
+            and res["split_vs_numpy_sampled"]["max_emis_rel_err"] <= 1e-4
+            and len(res["mesh_config_devices"])
+            == torch.cuda.device_count() == 1
+            and res["mesh_config_tables"]["bit_equal_cells"] == n
+            and res["mesh_config_vs_unsplit_plans"]["cell_mismatches"] == 0
+            and timing["mesh_config"]["device_events"]
+            == timing["unsplit"]["device_events"]):
+        raise RuntimeError(f"the cell split disagrees: {res}")
+    return res
+
+
+class EPRecorder:
+    """Keeps every call of the port's MoE layer (``transformer.moe_ffn``)
+    in call order: its weights, input, output and aux, each token shard's
+    dispatch (top-k choices, kept assignments, capacity; one a shard) and
+    each model rank's f32 combine (one a shard and rank, shard-major)."""
+
+    def __init__(self, moe, transformer):
+        self.moe, self.T, self.calls = moe, transformer, []
+
+    def __enter__(self):
+        self.orig = (self.moe.dispatch_indices, self.moe.combine,
+                     self.T.moe_ffn)
+        dispatch, combine, layer = self.orig
+
+        def recorded_dispatch(top_i, n_experts, cap):
+            e_flat, slot, keep = dispatch(top_i, n_experts, cap)
+            self.calls[-1]["shards"].append({"top_i": top_i, "keep": keep,
+                                             "cap": cap})
+            return e_flat, slot, keep
+
+        def recorded_combine(*a):
+            out = combine(*a)
+            self.calls[-1]["partials"].append(out.detach())
+            return out
+
+        def recorded_layer(p, x, cfg, **kw):
+            self.calls.append({"p": p, "x": x, "kw": kw, "shards": [],
+                               "partials": []})
+            y, aux = layer(p, x, cfg, **kw)
+            self.calls[-1].update(y=y.detach(), aux=aux.detach())
+            return y, aux
+
+        self.moe.dispatch_indices = recorded_dispatch
+        self.moe.combine = recorded_combine
+        self.T.moe_ffn = recorded_layer
+        return self
+
+    def __exit__(self, *exc):
+        (self.moe.dispatch_indices, self.moe.combine,
+         self.T.moe_ffn) = self.orig
+
+
+def plain_aux(p, xs, cfg, top_i):
+    """:func:`switch_aux` of one token group xs [T, d] under the choices
+    top_i, with its own true-f32 router."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        logits = xs.float() @ p["router"].float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return switch_aux(torch.softmax(logits, dim=-1), top_i)
+
+
+def moe_ep_check(calls, cfg, moe) -> dict:
+    """Every recorded expert-parallel MoE call (see :class:`EPRecorder`)
+    against the single-device MoE of each of its token shards: the plain
+    MoE (:func:`plain_moe_group`) on the shard's tokens with its own
+    capacity (choices, capacities and kept assignments counted where they
+    differ) and its model ranks' combines cast before their sum, the
+    shards' outputs joined in shard order (within MOE_LAYER_TOL, as
+    :func:`moe_layer_check`) and the mean of their aux (within
+    STEP_AUX_TOL_REL); and the output against the sum over ranks, in rank
+    order, of each rank's recorded combine cast to the model dtype, plus
+    the shared experts and the dense residual (equal bits expected: the
+    same operations on the same tensors). ``single_cast_err``: the output
+    against the plain MoE that casts once, the single-device layer's order
+    of rounding, also within MOE_LAYER_TOL (in bf16 the ranks' roundings
+    move a token by a few ulps of its partials)."""
+    st, err, aux_err, rank_sum = _moe_stats(), 0.0, 0.0, 0
+    single_err, layout = 0.0, set()
+    for c in calls:
+        x, y, gated = c["x"], c["y"], c["kw"].get("gated", True)
+        d = x.shape[-1]
+        xt = x.reshape(-1, d)
+        n_b = len(c["shards"])
+        t_loc, n_r = xt.shape[0] // n_b, len(c["partials"]) // n_b
+        layout.add((n_b, n_r))
+        plain, single, auxes, summed = [], [], [], []
+        for b, rec in enumerate(c["shards"]):
+            xs = xt[b * t_loc:(b + 1) * t_loc]
+            plain.append(plain_moe_group(c["p"], xs[None], cfg, gated, rec,
+                                         st, n_r)[0].float())
+            single.append(plain_moe_group(c["p"], xs[None], cfg, gated, rec,
+                                          _moe_stats())[0].float())
+            auxes.append(plain_aux(c["p"], xs, cfg, rec["top_i"]))
+            acc = None
+            for part in c["partials"][b * n_r:(b + 1) * n_r]:
+                part = part.to(x.dtype)
+                acc = part if acc is None else acc + part.to(acc.device)
+            summed.append(acc.to(x.device))
+        for name, want in (("ranks", torch.cat(plain)),
+                           ("single", torch.cat(single))):
+            gap = (y.reshape(-1, d).float() - want).norm(dim=1)
+            e = float(gap.max() / want.norm(dim=1).mean().clamp_min(1e-30))
+            if name == "ranks":
+                err = max(err, e)
+            else:
+                single_err = max(single_err, e)
+        aux_err = max(aux_err, _rel(float(c["aux"]),
+                                    float(torch.stack(auxes).mean())))
+        y_sum = torch.cat(summed)
+        for pre, on in (("shared", cfg.n_shared_experts),
+                        ("dense", cfg.dense_residual)):
+            if on:
+                y_sum = y_sum + moe._branch(c["p"], pre, xt, gated)
+        rank_sum += int((y_sum.reshape(y.shape) != y).sum())
+    return {"calls": len(calls), "shards_x_ranks": sorted(layout),
+            "ep_err": err, "ep_tol": MOE_LAYER_TOL,
+            "single_cast_err": single_err, "aux_rel_err": aux_err,
+            "aux_tol": STEP_AUX_TOL_REL, "rank_sum_mismatch": rank_sum,
+            **{f"ep_{k}": v for k, v in st.items()}}
+
+
+def moe_ep_ok(res: dict) -> bool:
+    return (res["calls"] > 0
+            and res["ep_err"] <= MOE_LAYER_TOL
+            and res["single_cast_err"] <= MOE_LAYER_TOL
+            and res["aux_rel_err"] <= STEP_AUX_TOL_REL
+            and res["rank_sum_mismatch"] == 0
+            and res["ep_flips"] == res["ep_cap_mismatch"]
+            == res["ep_keep_mismatch"] == 0)
+
+
+class EPCalls:
+    """Counts the calls of the expert-parallel branch
+    (``moe.expert_parallel``, which ``moe_ffn`` looks up when it runs)."""
+
+    def __init__(self, moe):
+        self.moe, self.n = moe, 0
+
+    def __enter__(self):
+        self.real = self.moe.expert_parallel
+
+        def counted(*a, **k):
+            self.n += 1
+            return self.real(*a, **k)
+
+        self.moe.expert_parallel = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.expert_parallel = self.real
+
+
+def host_mesh(shape: tuple):
+    """A (data, model) HostMesh of ``shape`` that repeats the card."""
+    from repro_torch.runtime import pspec as PS
+    card = torch.empty(0, device=DEVICE).device
+    return PS.HostMesh(np.full(shape, card, dtype=object), ("data", "model"))
+
+
+def moe_mesh_serving(M, model, run, tokens, fed, kernels: dict,
+                     label: str) -> dict:
+    """Phases 14 and 16 under a mesh, on the model just served: the model
+    API's cached steps (prefill, then a decode step for each token of
+    ``fed``) unmeshed, under a 2 x 2 mesh of the card with the ``"2d"``
+    rules (every MoE call recorded and held by :func:`moe_ep_check`), and
+    under a 1 x 2 mesh (one token shard, so the unmeshed capacities),
+    whose cached logits must sit within LOGIT_TOL_REL of the unmeshed
+    ones. The 1 x 2 run routes with the unmeshed run's choices
+    (:class:`RouteReplay`, its own router's flips counted): the ranks'
+    bf16 sum moves a layer's output by an ulp here and there, which flips
+    near-tied choices in the layers after it, and a flipped token moves
+    its logits by O(1) (as between the kernel and plain paths). Each
+    run profiled (device events and ms) with its wall and each of
+    ``kernels``' launches (name -> (wrapper, launches a prefill)), which
+    must be the unmeshed run's. Returns the launches of the two meshed
+    runs."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import pspec as PS
+    n_moe = sum(1 for layer in model.decoder.layers
+                if layer.spec.is_moe and layer.spec.has_ffn)
+    rows, logits = {}, {}
+    ep, replay = None, RouteReplay(moe)
+    for name, shape in (("unmeshed", None), ("mesh_2x2", (2, 2)),
+                        ("mesh_1x2", (1, 2))):
+        mesh = None if shape is None else host_mesh(shape)
+        before = {n: w.launches for n, (w, _) in kernels.items()}
+        rec = EPRecorder(moe, T) if name == "mesh_2x2" else \
+            contextlib.nullcontext()
+        routing = {"unmeshed": replay.record, "mesh_1x2": replay.replay}.get(
+            name, contextlib.nullcontext)()
+        out = {}
+
+        def fn():
+            with PS.sharding_scope(mesh, "2d"), rec, routing, \
+                    EPCalls(moe) as cnt:
+                out["logits"], out["timing"] = cached_steps(M, model, run,
+                                                            tokens, fed)
+                out["ep_calls"] = cnt.n
+
+        ev = device_events(fn)
+        logits[name] = torch.stack(out.pop("logits"), 1).float()
+        rows[name] = {**out.pop("timing"), **ev, **out, "launches": {
+            n: w.launches - before[n] for n, (w, _) in kernels.items()}}
+        if name == "mesh_2x2":
+            ep = moe_ep_check(rec.calls, model.cfg.moe, moe)
+            del rec
+    base = logits["unmeshed"]
+    res = {"arch": model.cfg.name, "moe_layers": n_moe,
+           "steps": 1 + fed.shape[1], **ep,
+           "logits_1x2_vs_unmeshed_rel": rel_err(logits["mesh_1x2"], base),
+           "logits_2x2_vs_unmeshed_rel": rel_err(logits["mesh_2x2"], base),
+           "replayed_route_calls": len(replay.choices),
+           "replay_calls_left": replay.left,
+           "replay_prefill_flips": replay.flips,
+           "logit_tol_rel": LOGIT_TOL_REL, "finite": all(
+               bool(torch.isfinite(v).all()) for v in logits.values()),
+           **rows}
+    emit({f"{label}_mesh": res})
+    want = rows["unmeshed"]["launches"]
+    if not (moe_ep_ok(ep)
+            and ep["calls"] == n_moe * res["steps"]
+            and ep["shards_x_ranks"] == [(2, 2)]
+            and res["finite"]
+            and res["logits_1x2_vs_unmeshed_rel"] <= LOGIT_TOL_REL
+            and res["replayed_route_calls"] == n_moe * res["steps"]
+            and res["replay_calls_left"] == 0
+            and rows["unmeshed"]["ep_calls"] == 0
+            and rows["mesh_2x2"]["ep_calls"] == rows["mesh_1x2"]["ep_calls"]
+            == n_moe * res["steps"]
+            and all(v > 0 for v in want.values())
+            and rows["mesh_2x2"]["launches"] == rows["mesh_1x2"]["launches"]
+            == want):
+        raise RuntimeError(f"{label} under the mesh failed: {res}")
+    return {n: rows["mesh_2x2"]["launches"][n] + rows["mesh_1x2"]["launches"][n]
+            for n in want}
+
+
+def moe_mesh_train_step(M, adamw, cfg, run, batch, kernels: dict,
+                        label: str) -> dict:
+    """Phase 19 under a mesh: one train step (loss, aux and gradient norms,
+    no update) of the cut model unmeshed and under a 1 x 2 mesh of the
+    card with the ``"2d"`` rules (one token shard, so the single-device
+    capacities; each rank runs half the experts): loss and aux within
+    STEP_LOSS_TOL_REL and STEP_AUX_TOL_REL, the gradient norms within
+    STEP_GNORM_TOL_REL, each step profiled with its wall, the same
+    launches of ``kernels``, and every MoE call, the recompute's too,
+    through the expert-parallel branch."""
+    from repro_torch.models import moe
+    from repro_torch.runtime import pspec as PS
+    model = M.build_model(cfg, seed=SEED, device=DEVICE).requires_grad_(True)
+    n_moe = sum(1 for layer in model.decoder.layers
+                if layer.spec.is_moe and layer.spec.has_ffn)
+    rows = {}
+    for name, shape in (("unmeshed", None), ("mesh_1x2", (1, 2))):
+        mesh = None if shape is None else host_mesh(shape)
+        before = {n: w.launches for n, (w, _) in kernels.items()}
+        out = {}
+
+        def fn():
+            with PS.sharding_scope(mesh, "2d"), EPCalls(moe) as cnt:
+                out.update(moe_step_terms(M, adamw, model, run, batch))
+            out["ep_calls"] = cnt.n
+
+        t0 = time.perf_counter()
+        ev = device_events(fn)
+        rows[name] = {**out, "wall_s": time.perf_counter() - t0, **ev,
+                      "launches": {n: w.launches - before[n]
+                                   for n, (w, _) in kernels.items()}}
+    u, m = rows["unmeshed"], rows["mesh_1x2"]
+    res = {"arch": cfg.name, "experts": cfg.moe.n_experts,
+           "experts_a_rank": cfg.moe.n_experts // 2, "moe_layers": n_moe,
+           "tokens": list(batch["tokens"].shape),
+           "loss_rel_diff": _rel(m["loss"], u["loss"]),
+           "aux_rel_diff": _rel(m["aux"], u["aux"]),
+           "gnorm_rel_diff": _rel(m["gnorm"], u["gnorm"]),
+           "router_gnorm_rel_diff": _rel(m["router_gnorm"],
+                                         u["router_gnorm"]),
+           "tol_loss_rel": STEP_LOSS_TOL_REL, "tol_aux_rel": STEP_AUX_TOL_REL,
+           "tol_gnorm_rel": STEP_GNORM_TOL_REL, **rows}
+    emit({f"{label}_mesh_train_step": res})
+    del model
+    torch.cuda.empty_cache()
+    if not (all(math.isfinite(m[k]) for k in ("loss", "gnorm", "aux"))
+            and res["loss_rel_diff"] <= STEP_LOSS_TOL_REL
+            and res["aux_rel_diff"] <= STEP_AUX_TOL_REL
+            and res["gnorm_rel_diff"] <= STEP_GNORM_TOL_REL
+            and res["router_gnorm_rel_diff"] <= STEP_GNORM_TOL_REL
+            and u["ep_calls"] == 0 and m["ep_calls"] == 2 * n_moe > 0
+            and m["launches"] == u["launches"]
+            == {n: e for n, (_, e) in kernels.items()}):
+        raise RuntimeError(f"{label} train step under the mesh disagrees "
+                           f"with the unmeshed one: {res}")
+    return m["launches"]
 
 
 def main() -> int:
@@ -3006,6 +3437,12 @@ def main() -> int:
     leg_scorer(tp)
 
     clock.mark("4b per-leg scorer")
+
+    # 4c. the planner lattice's cell axis split over three copies of the
+    # card, against unsplit and the numpy oracle
+    cell_split(tp, gt, ftns, job)
+
+    clock.mark("4c cell split")
 
     # 5. oracle: sampled plans against the port's numpy plan_batch
     idxs = sorted({int(i) for i in

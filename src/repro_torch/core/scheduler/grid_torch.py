@@ -6,7 +6,9 @@ jobs are padded/masked into one stacked cell table (the numpy builder
 below, copied from the reference) and scored with plain torch ops on the
 planner's device. This is the ``batch_backend="torch"`` path and the one
 ``TorchCarbonPlanner.rescore_batch`` uses for large sweeps; the fused
-CUDA kernels of ``grid_cuda`` consume the same tables. Its per-leg scorer
+CUDA kernels of ``grid_cuda`` consume the same tables; with ``shard`` its
+cell axis splits over devices (:class:`MeshConfig`, the reference's
+``shard_map``). Its per-leg scorer
 (:class:`TorchGridScorer`, the reference's ``JaxGridScorer``) scores all
 start slots of one leg for ``plan()`` and ``rescore()`` with
 ``backend="torch"``, on the ``make_window`` / ``window_ci_torch`` view.
@@ -35,6 +37,7 @@ from repro_torch.core.carbon.field import (TWO_PI_F32, WEEKEND_F32,
                                            window_to)
 from repro_torch.core.carbon.intensity import REGIONS, get_calibration
 from repro_torch.core.carbon.path import NetworkPath
+from repro_torch.runtime.pspec import HostMesh
 
 _WINDOW_HOURS = 24 * 14                # per-anchor horizon (2 weeks)
 _GRID_BUCKET = 512                     # rate-grid length rounding
@@ -316,21 +319,12 @@ def tables_to_device(tables, device: Union[str, torch.device]
         n_slots_pad=int(tables.n_slots_pad))
 
 
-def _lattice(d: DeviceTables, *, slot_stride: int,
-             dt_s: float) -> torch.Tensor:
-    """The fleet scorer for one chunk (shapes: Z zones, W hours, N
-    anchors, A (anchor, path) pairs, H hops, C cells, S slots, T grid
-    steps). Returns the (C, 2, S) f64 emission table.
-
-    Stage 1 evaluates zone CI on the (anchor x zone x grid) lattice, so
-    the trig/noise chain runs once per anchor-zone, not once per hop.
-    Stage 2 gathers the lattice into per-(anchor, path) device-CI grids
-    (sub-metering band x hourly hop noise) and prefix-sums them in f64.
-    Stage 3 gathers each cell's prefix segments over a batch dimension
-    (the reference's ``vmap``).
-    """
+def _pair_grids(d: DeviceTables, *, dt_s: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stages 1-2 of :func:`_lattice` on the tables' device: the (A, H,
+    T+1) f64 prefix sums and the (A, H, T) f32 device-CI grids."""
     dev = d.znoise.device
-    n_grid, n_slots = d.n_grid_pad, d.n_slots_pad
+    n_grid = d.n_grid_pad
     f64 = torch.float64
     zbase, zamp, zdip, znamp, zpeak = (col[None, :, None] for col in d.zcols)
     n_z, w_hours = d.znoise.shape
@@ -365,24 +359,131 @@ def _lattice(d: DeviceTables, *, slot_stride: int,
     prefix = torch.cat([torch.zeros(ci.shape[:2] + (1,), dtype=f64,
                                     device=dev),
                         torch.cumsum(ci.double(), dim=2)], dim=2)   # (A,H,T+1)
-    # stage 3: per-cell gathers; padded slots clamp into the grid (their
-    # values are sliced away by the caller)
+    return prefix, ci
+
+
+def _cell_rows(prefix: torch.Tensor, ci: torch.Tensor,
+               pair_idx: torch.Tensor, n_steps: torch.Tensor,
+               w_dev: torch.Tensor, rem: torch.Tensor, *, n_slots: int,
+               slot_stride: int, dt_s: float) -> torch.Tensor:
+    """Stage 3 of :func:`_lattice` for some cells, on the device of its
+    tensors: each cell's prefix segments gathered over a batch dimension
+    (the reference's ``vmap``); padded slots clamp into the grid (their
+    values are sliced away by the caller). Returns (C, 2, S) f64."""
+    dev = prefix.device
+    n_grid = ci.shape[2]
+    hseq = torch.arange(ci.shape[1], device=dev)
     kk = slot_stride * torch.arange(n_slots, device=dev)            # (S,)
-    hi = kk[None, :] + d.n_steps[:, None] - 1                       # (C,S)
-    p4 = d.pair_idx.long()[:, :, None, None]
+    hi = kk[None, :] + n_steps[:, None] - 1                         # (C,S)
+    p4 = pair_idx.long()[:, :, None, None]
     h4 = hseq[None, None, :, None]
     seg = (prefix[p4, h4, hi.clamp(max=n_grid)[:, None, None, :]]
            - prefix[p4, h4, kk.clamp(max=n_grid)[None, None, None, :]])
     last = ci[p4, h4, hi.clamp(max=n_grid - 1)[:, None, None, :]].double()
-    return true_div(torch.einsum("clh,clhs->cls", d.w_dev, seg) * dt_s
-                    + torch.einsum("clh,clhs->cls", d.w_dev, last)
-                    * d.rem[:, None, None], 3.6e6)                  # (C,2,S)
+    return true_div(torch.einsum("clh,clhs->cls", w_dev, seg) * dt_s
+                    + torch.einsum("clh,clhs->cls", w_dev, last)
+                    * rem[:, None, None], 3.6e6)                    # (C,2,S)
+
+
+def _lattice(d: DeviceTables, *, slot_stride: int, dt_s: float,
+             devices: Sequence[torch.device] = ()) -> torch.Tensor:
+    """The fleet scorer for one chunk (shapes: Z zones, W hours, N
+    anchors, A (anchor, path) pairs, H hops, C cells, S slots, T grid
+    steps). Returns the (C, 2, S) f64 emission table on the tables'
+    device.
+
+    Stage 1 evaluates zone CI on the (anchor x zone x grid) lattice, so
+    the trig/noise chain runs once per anchor-zone, not once per hop.
+    Stage 2 gathers the lattice into per-(anchor, path) device-CI grids
+    (sub-metering band x hourly hop noise) and prefix-sums them in f64.
+    Stage 3 gathers each cell's prefix segments over a batch dimension.
+
+    With two or more ``devices`` (the reference's ``shard_map`` over a
+    mesh's cell axis) stages 1-2 still run once, here; their grids are
+    copied once to each distinct other device, and stage 3 runs on each
+    device in turn over an even slice of the cell axis (C must divide),
+    the slices' tables joined in device order.
+    """
+    prefix, ci = _pair_grids(d, dt_s=dt_s)
+    kw = dict(n_slots=d.n_slots_pad, slot_stride=slot_stride, dt_s=dt_s)
+    cells = (d.pair_idx, d.n_steps, d.w_dev, d.rem)
+    if len(devices) < 2:
+        return _cell_rows(prefix, ci, *cells, **kw)
+    n_c = d.pair_idx.shape[0]
+    if n_c % len(devices):
+        raise ValueError(f"{n_c} cells do not split over {len(devices)} "
+                         f"devices")
+    rows = n_c // len(devices)
+    grids = {prefix.device: (prefix, ci)}
+    out = []
+    for i, sd in enumerate(devices):
+        sd = torch.device(sd)
+        if sd not in grids:
+            grids[sd] = (prefix.to(sd), ci.to(sd))
+        part = [t[i * rows:(i + 1) * rows].to(sd) for t in cells]
+        out.append(_cell_rows(*grids[sd], *part, **kw).to(prefix.device))
+    return torch.cat(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Declared devices for the batched planner's cell-axis split (the
+    reference's ``grid_jax.MeshConfig``): which platform's devices, how
+    many of them, and the name of the one mesh axis the cell axis splits
+    over. ``build()`` resolves it into a 1-D :class:`HostMesh`.
+
+    ``platform="cpu"`` gives ``n_devices`` copies of the CPU device (one
+    if unset): the port's counterpart of the reference's
+    ``--xla_force_host_platform_device_count``, which lets the split run,
+    and be held against the unsplit path, on a host without accelerators.
+    ``"cuda"`` (the default) gives the visible ``cuda:i``, truncated to
+    ``n_devices``.
+    """
+    axis: str = "cells"
+    n_devices: Optional[int] = None    # None = every matching device
+    platform: Optional[str] = None     # None = cuda, the port's default
+
+    def __post_init__(self):
+        if not self.axis:
+            raise ValueError("MeshConfig.axis must be a non-empty name")
+        if self.n_devices is not None and self.n_devices < 1:
+            raise ValueError(f"MeshConfig.n_devices must be >= 1 or None, "
+                             f"got {self.n_devices}")
+
+    def devices(self) -> List[torch.device]:
+        """The devices this config selects, in ``cuda:i`` order."""
+        platform = self.platform or "cuda"
+        if platform == "cpu":
+            return [torch.device("cpu")] * (self.n_devices or 1)
+        if platform != "cuda":
+            raise ValueError(f"MeshConfig.platform must be 'cuda', 'cpu' "
+                             f"or None, got {self.platform!r}")
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+        return devs if self.n_devices is None else devs[:self.n_devices]
+
+    def build(self) -> HostMesh:
+        """A 1-D :class:`HostMesh` over :meth:`devices`."""
+        devs = self.devices()
+        if not devs:
+            raise ValueError(f"MeshConfig{dataclasses.astuple(self)!r} "
+                             f"matches no devices")
+        return HostMesh(devs, (self.axis,))
+
+
+def _split_devices(shard, device: torch.device) -> List[torch.device]:
+    """What ``shard`` selects (see :func:`batch_cell_emissions`)."""
+    if isinstance(shard, MeshConfig):
+        return shard.devices()
+    if shard is None or shard:
+        return MeshConfig(platform=device.type).devices()
+    return []
 
 
 def batch_cell_emissions(field: CarbonField, cells: Sequence[CellTask], *,
                          dt_s: float = 60.0, slot_stride: int = 60,
-                         device: Optional[Union[str, torch.device]] = None
-                         ) -> List[np.ndarray]:
+                         device: Optional[Union[str, torch.device]] = None,
+                         shard=None) -> List[np.ndarray]:
     """Score every cell's (leg, start-slot) emission table, one torch pass
     per memory chunk on ``device`` (``cuda`` unless given). Returns, per
     cell, a ``(n_legs, n_slots)`` f64 array matching
@@ -390,15 +491,37 @@ def batch_cell_emissions(field: CarbonField, cells: Sequence[CellTask], *,
 
     ``slot_stride`` is the slot spacing in dt_s steps (the planner's
     ``slot_s / dt_s``; both legs of a cell share the slot/step layout).
+    ``shard`` selects the split of the cell axis over devices, as the
+    reference's: ``True`` every visible device of ``device``'s platform,
+    ``False`` none, a :class:`MeshConfig` its devices, and ``None`` every
+    visible device when there is more than one. Fewer than two devices
+    run the unsplit path: the split never changes a result.
     """
     dev = resolve_device(device)
+    return cell_emissions_on(field, cells, _split_devices(shard, dev),
+                             dt_s=dt_s, slot_stride=slot_stride, device=dev)
+
+
+def cell_emissions_on(field: CarbonField, cells: Sequence[CellTask],
+                      devices: Sequence[Union[str, torch.device]], *,
+                      dt_s: float = 60.0, slot_stride: int = 60,
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> List[np.ndarray]:
+    """:func:`batch_cell_emissions` split over an explicit device list (the
+    reference's ``_kernel(mesh=)``; a device may repeat): each chunk's
+    cell axis pads to a multiple of ``lcm(64, len(devices))`` and stage 3
+    of the lattice runs on each device in turn. Fewer than two devices
+    run the unsplit path on ``device``."""
+    dev = resolve_device(device)
+    devs = [torch.device(d) for d in devices] if len(devices) >= 2 else []
+    bucket = math.lcm(_B_CELLS, max(len(devs), 1))
     out: List[Optional[np.ndarray]] = [None] * len(cells)
     for chunk in _iter_chunks(cells, slot_stride, _MAX_ELEMS):
         sub = [cells[j] for j in chunk]
         t = _chunk_tables(field, sub, dt_s=dt_s, slot_stride=slot_stride,
-                          cell_bucket=_B_CELLS)
+                          cell_bucket=bucket)
         emis = _lattice(tables_to_device(t, dev), slot_stride=slot_stride,
-                        dt_s=dt_s).cpu().numpy()
+                        dt_s=dt_s, devices=devs).cpu().numpy()
         for row, (j, c) in enumerate(zip(chunk, sub)):
             out[j] = emis[row, :len(c.legs), :c.n_slots]
     return out                         # type: ignore[return-value]

@@ -466,7 +466,8 @@ class TorchCarbonPlanner:
             return self.plan_batch_torch(jobs)
         return [self.plan(job) for job in jobs]
 
-    def plan_batch_torch(self, jobs: Sequence[TransferJob]) -> List[Plan]:
+    def plan_batch_torch(self, jobs: Sequence[TransferJob], *,
+                         shard=None) -> List[Plan]:
         """Batched fleet planning on the planner's device: every job's
         (FTN x replica x slot) grid is stacked into one padded/masked cell
         table and scored per memory chunk.
@@ -483,6 +484,10 @@ class TorchCarbonPlanner:
         (cost, emissions, slot) crosses back to the host. With ``"torch"``
         the lattice of ``grid_torch.batch_cell_emissions`` returns each
         cell's (leg, slot) emission table and the host takes the argmin.
+        ``shard`` is forwarded to that lattice's split of the cell axis
+        over devices: ``None``/``True``/``False`` or a
+        :class:`~repro_torch.core.scheduler.grid_torch.MeshConfig`. It
+        does not apply to the fused kernels.
         """
         dt_s = 60.0
         stride = self.slot_s / dt_s
@@ -501,7 +506,7 @@ class TorchCarbonPlanner:
         elif cells:
             tables = batch_cell_emissions(self.field, cells, dt_s=dt_s,
                                           slot_stride=stride,
-                                          device=self.device)
+                                          device=self.device, shard=shard)
         plans: List[Optional[Plan]] = []
         winners: List[Tuple[int, Tuple[TransferJob, Tuple, int]]] = []
         for job, jcells in zip(jobs, meta):

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.runtime import pspec as PS
 
 NEG_INF = -2.0e38  # fp32-safe
 ATTN_IMPLS = ("naive", "blockwise", "flash")
@@ -130,6 +131,24 @@ def _blockwise_sdpa(q, k, v, q_pos, kv_pos, causal, window, scale,
         m = m_cur
     out = acc / torch.clamp_min(l[..., None], 1e-37)
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, nq, h).to(v.dtype)
+
+
+def use_seq_parallel(q, k) -> bool:
+    """The reference's predicate for context-parallel self-attention: an
+    active mesh whose rules replicate the heads over 'model'
+    (``pspec.seq_attn_rules``, or ``"fsdp"``) while the cache's sequence
+    splits over a model axis larger than 1, on a full self-attention
+    (T == S) whose length that axis divides. Under ``"2d"`` heads map to
+    'model', so it never holds."""
+    if PS.active_mesh() is None:
+        return False
+    if PS.logical_axis_size("heads") != 1:
+        return False                       # heads are model-sharded
+    n_model = PS.logical_axis_size("seq_model")
+    if n_model <= 1:
+        return False
+    S, T = k.shape[1], q.shape[1]
+    return T == S and S % n_model == 0
 
 
 def attention(q, k, v, *, q_pos, kv_pos, causal: bool = True,

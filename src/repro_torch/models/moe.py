@@ -9,10 +9,13 @@ dropped: it scatters into a spare expert row that is cut off before the
 products, and its weight in the combine is 0. Arctic-style dense residual
 branches and DeepSeek/Kimi-style shared experts follow ``MoEConfig``.
 
-The reference's expert-parallel branch (``shard_map`` over a mesh) waits
-for the port's multi-GPU split (ROADMAP.md, queue 1, items 9 and 11).
-Each step here is a module-level function that :func:`moe_ffn` looks up
-when it runs.
+Under an active mesh (``runtime.pspec.sharding_scope`` with a
+``HostMesh``) :func:`moe_ffn` takes the reference's expert-parallel branch
+(its ``shard_map`` over the mesh) as explicit loops over the mesh's
+positions in rank order: tokens split over the batch axes, each shard
+dispatched at its own capacity, each model rank running its own slice of
+the experts. Each step here is a module-level function that
+:func:`moe_ffn` and the branch look up when they run.
 """
 from __future__ import annotations
 
@@ -21,11 +24,13 @@ import math
 import threading
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import ffn
+from repro_torch.runtime import pspec as PS
 
 
 def capacity(n_tokens: int, cfg: MoEConfig) -> int:
@@ -163,20 +168,94 @@ def _branch(p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor,
     return ffn({n: p[f"{prefix}_{n}"] for n in names}, x, gated=gated)
 
 
+def expert_parallel(p: Dict[str, torch.Tensor], xt: torch.Tensor,
+                    cfg: MoEConfig, gated: bool, mesh: PS.HostMesh
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts over ``mesh`` (the reference's
+    ``_routed_shardmap`` and ``_routed_local``): xt [T, d] -> (y [T, d]
+    in xt's dtype, aux).
+
+    The tokens split evenly over the batch axes that ``resolve(("batch",
+    None))`` picks for xt (none when they do not divide T: every shard
+    sees all tokens). Each token shard routes its own tokens and
+    dispatches them at ``capacity(T_loc)``. Model rank r of the expert
+    axis keeps the assignments to its experts [r*E_loc, (r+1)*E_loc) and
+    runs those experts on views of the weights moved to its device (the
+    FSDP gather is the identity here); its f32 combine is cast to xt's
+    dtype before the sum over ranks, which runs in rank order on the
+    shard's rank-0 device. aux is the mean of the shards' aux. The
+    shards' outputs join in shard order on xt's device."""
+    if not isinstance(mesh, PS.HostMesh):
+        raise TypeError(f"the expert-parallel MoE needs a HostMesh, not "
+                        f"{type(mesh).__name__}: a shape-only mesh places "
+                        f"nothing")
+    batch_axes = PS.resolve(("batch", None), shape=xt.shape)[0]
+    model_axis = PS.resolve(("expert", "fsdp", None))[0]
+    b_axes = (() if batch_axes is None else
+              (batch_axes,) if isinstance(batch_axes, str) else batch_axes)
+    b_sizes = [mesh.shape[a] for a in b_axes]
+    n_batch = int(np.prod(b_sizes, dtype=np.int64))
+    n_model = mesh.shape[model_axis] if model_axis else 1
+    if cfg.n_experts % n_model:
+        raise ValueError(f"{cfg.n_experts} experts do not split over "
+                         f"{n_model} model ranks")
+    e_loc = cfg.n_experts // n_model
+    T, k = xt.shape[0], cfg.top_k
+    t_loc = T // n_batch
+    names = ("wg", "wu", "wd") if gated else ("wu", "wd")
+
+    def device(b: int, r: int) -> torch.device:
+        coord = dict(zip(b_axes, np.unravel_index(b, b_sizes)))
+        if model_axis:
+            coord[model_axis] = r
+        return mesh.devices[tuple(int(coord.get(a, 0))
+                                  for a in mesh.axis_names)]
+
+    ys, auxes = [], []
+    for b in range(n_batch):
+        dev0 = device(b, 0)
+        x_b = xt[b * t_loc:(b + 1) * t_loc].to(dev0)
+        top_p, top_i, aux = route(p["router"].to(dev0), x_b, cfg)
+        cap = capacity(t_loc, cfg)
+        e_flat, slot, keep = dispatch_indices(top_i, cfg.n_experts, cap)
+        y_b = None
+        for r in range(n_model):
+            dev, off = device(b, r), r * e_loc
+            e_r, slot_r, keep_r, p_r, x_r = (
+                t.to(dev) for t in (e_flat, slot, keep, top_p, x_b))
+            keep_r = keep_r & (e_r >= off) & (e_r < off + e_loc)
+            e_r = torch.clamp(e_r - off, 0, e_loc - 1)
+            buf = scatter(x_r, e_r, slot_r, keep_r, e_loc, cap, k)
+            out_buf = experts({n: p[n][off:off + e_loc].to(dev)
+                               for n in names}, buf, gated)
+            part = combine(out_buf, e_r, slot_r, p_r, keep_r, k) \
+                .to(xt.dtype).to(dev0)
+            y_b = part if y_b is None else y_b + part
+        ys.append(y_b.to(xt.device))
+        auxes.append(aux.to(xt.device))
+    return torch.cat(ys), torch.stack(auxes).mean()
+
+
 def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig, *,
             gated: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux scalar). The routed experts'
-    combine is cast to x's dtype once; the shared experts and the dense
-    residual are added after, in x's dtype, as the reference does."""
+    combine is cast to x's dtype once (once a model rank under a mesh:
+    :func:`expert_parallel`); the shared experts and the dense residual
+    are added after, on all tokens, in x's dtype, as the reference does."""
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
-    top_p, top_i, aux = route(p["router"], xt, cfg)
-    cap = capacity(T, cfg)
-    e_flat, slot, keep = dispatch_indices(top_i, cfg.n_experts, cap)
-    buf = scatter(xt, e_flat, slot, keep, cfg.n_experts, cap, cfg.top_k)
-    out_buf = experts(p, buf, gated)
-    y = combine(out_buf, e_flat, slot, top_p, keep, cfg.top_k).to(x.dtype)
+    mesh = PS.active_mesh()
+    if mesh is not None:
+        y, aux = expert_parallel(p, xt, cfg, gated, mesh)
+    else:
+        top_p, top_i, aux = route(p["router"], xt, cfg)
+        cap = capacity(T, cfg)
+        e_flat, slot, keep = dispatch_indices(top_i, cfg.n_experts, cap)
+        buf = scatter(xt, e_flat, slot, keep, cfg.n_experts, cap, cfg.top_k)
+        out_buf = experts(p, buf, gated)
+        y = combine(out_buf, e_flat, slot, top_p, keep,
+                    cfg.top_k).to(x.dtype)
     if cfg.n_shared_experts:
         y = y + _branch(p, "shared", xt, gated)
     if cfg.dense_residual:

@@ -20,6 +20,7 @@ scan step): the backward pass reruns the forward, kernels included.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -30,9 +31,11 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import kvcache as KC
 from repro_torch.models import params as P
 from repro_torch.models.layers import (apply_rope, attention,
-                                       attention_projections, ffn, rms_norm)
+                                       attention_projections, ffn, rms_norm,
+                                       use_seq_parallel)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import SSMState, mamba_block
+from repro_torch.runtime import pspec as PS
 
 Cache = Dict[str, torch.Tensor]
 
@@ -78,6 +81,11 @@ def _attn_sublayer(cfg: ModelConfig, run: RunConfig, spec: P.SubLayerSpec,
         if use_rope:
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
+        if use_seq_parallel(q, k):
+            raise NotImplementedError(
+                "sequence-parallel attention under a mesh (the reference's "
+                "seq_parallel_attention) waits for ROADMAP.md queue 1 item "
+                "11; use the '2d' rules, which split heads, not sequence")
         out = attention(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
                         window=window, impl=run.attn_impl,
                         block_kv=run.attn_block_kv)
@@ -254,10 +262,18 @@ class Decoder(nn.Module):
             caches = None if cache is None else cache[g:g + period]
             args = (x, self.layers[g:g + period], run, mode, cur, caches,
                     enc_out)
-            x, aux_g = (checkpoint(_run_group, *args, use_reentrant=False)
+            x, aux_g = (checkpoint(_run_group, *args, use_reentrant=False,
+                                   context_fn=_in_scope(PS.current_scope()))
                         if remat else _run_group(*args))
             aux = _add_aux(aux, aux_g)
         return rms_norm(x, self.norm, self.cfg.norm_eps), aux
+
+
+def _in_scope(scope):
+    """A checkpoint's ``context_fn``: its recompute, which autograd may run
+    on another thread, re-enters the forward's sharding scope (the
+    MoE's mesh branch reads it)."""
+    return lambda: (contextlib.nullcontext(), PS.sharding_scope(*scope))
 
 
 def _add_aux(total: Optional[torch.Tensor],

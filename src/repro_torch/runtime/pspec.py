@@ -1,0 +1,209 @@
+"""Logical-axis sharding rules and the host mesh they resolve against.
+
+The reference's ``runtime/pspec.py``: model code names axes logically
+('batch', 'heads', 'expert', ...) and a run-scoped rule table maps them to
+physical mesh axes. Outside a mesh scope every lookup gives one device, so
+model code never needs to know whether it is split.
+
+The port's mesh is :class:`HostMesh`: one process's grid of torch devices
+(repeats allowed), the counterpart of a ``jax.sharding.Mesh`` run SPMD in
+one process. Code that splits over it loops over the mesh positions itself,
+in rank order; there is no process group. :func:`abstract_mesh` gives a
+shape-only mesh for resolving specs without devices.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+Logical = Union[str, None, Tuple[str, ...]]
+Entry = Union[str, None, Tuple[str, ...]]
+
+# physical axes referenced by rules must exist in the active mesh; entries
+# whose physical axes are absent degrade to None (replicated).
+DEFAULT_RULES: Dict[str, Union[str, Tuple[str, ...], None]] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "seq_shard": "data",        # sequence-parallel KV for batch=1 long decode
+    "embed": None,
+    "fsdp": "data",             # parameter fully-sharded axis
+    "heads": "model",
+    "kv_heads": "model",
+    "ffn": "model",
+    "vocab": "model",
+    "expert": "model",
+    "capacity": "data",
+    "ssm_inner": "model",
+    "seq_model": "model",       # fallback: shard cache seq over 'model' when
+                                # kv_heads doesn't divide the model axis
+    "pod": "pod",
+}
+
+FSDP_RULES = dict(DEFAULT_RULES, heads=None, kv_heads=None, ffn=None,
+                  vocab=None, ssm_inner=None, expert="model")
+DP_RULES = {k: None for k in DEFAULT_RULES} | {"batch": ("pod", "data", "model")}
+
+RULE_SETS = {"2d": DEFAULT_RULES, "fsdp": FSDP_RULES, "dp": DP_RULES}
+
+
+def seq_attn_rules(base) -> Dict:
+    """Context-parallel attention layout: attention weights replicate over
+    'model', activations shard the sequence over 'model' (the reference's
+    ``seq_parallel_attention``; the port's waits for ROADMAP.md queue 1
+    item 11)."""
+    if isinstance(base, str):
+        base = RULE_SETS[base]
+    return dict(base, heads=None, kv_heads=None)
+
+
+class AbstractMesh:
+    """A mesh's axis names and sizes, no devices: resolves specs only."""
+
+    def __init__(self, axis_sizes: Sequence[int],
+                 axis_names: Sequence[str]):
+        if len(axis_sizes) != len(axis_names):
+            raise ValueError(f"{len(axis_sizes)} axis sizes for "
+                             f"{len(axis_names)} axis names")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"axis names repeat: {tuple(axis_names)}")
+        if any(int(n) < 1 for n in axis_sizes):
+            raise ValueError(f"axis sizes must be >= 1: {tuple(axis_sizes)}")
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        self.shape: Dict[str, int] = {a: int(n) for a, n in
+                                      zip(axis_names, axis_sizes)}
+
+
+class HostMesh(AbstractMesh):
+    """A grid of torch devices in one process, with named axes: the
+    counterpart of ``jax.sharding.Mesh``. ``devices`` is an object array
+    of ``torch.device`` of the mesh's shape; a device may repeat (several
+    positions on one card, or the CPU standing in for several devices)."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        given = np.asarray(devices, dtype=object)
+        devs = np.empty(given.shape, dtype=object)
+        for idx in np.ndindex(given.shape):
+            devs[idx] = torch.device(given[idx])
+        super().__init__(devs.shape, axis_names)
+        self.devices = devs
+
+    def __repr__(self) -> str:
+        return (f"HostMesh({dict(self.shape)}, "
+                f"{[str(d) for d in self.devices.flat]})")
+
+
+def abstract_mesh(axis_sizes: Tuple[int, ...],
+                  axis_names: Tuple[str, ...]) -> AbstractMesh:
+    """A shape-only mesh (the reference's ``abstract_mesh``)."""
+    return AbstractMesh(axis_sizes, axis_names)
+
+
+class _Scope(threading.local):
+    def __init__(self):
+        self.mesh: Optional[AbstractMesh] = None
+        self.rules: Dict[str, Union[str, Tuple[str, ...], None]] = \
+            DEFAULT_RULES
+
+
+_SCOPE = _Scope()
+
+
+@contextlib.contextmanager
+def sharding_scope(mesh: Optional[AbstractMesh],
+                   rules: Union[str, Dict, None] = None):
+    """Activate a mesh (a :class:`HostMesh`, a shape-only mesh or None)
+    and a logical rule table (a name of ``RULE_SETS`` or a dict) for model
+    code, in this thread."""
+    prev = (_SCOPE.mesh, _SCOPE.rules)
+    if isinstance(rules, str):
+        rules = RULE_SETS[rules]
+    _SCOPE.mesh = mesh
+    _SCOPE.rules = dict(DEFAULT_RULES if rules is None else rules)
+    try:
+        yield
+    finally:
+        _SCOPE.mesh, _SCOPE.rules = prev
+
+
+def active_mesh() -> Optional[AbstractMesh]:
+    return _SCOPE.mesh
+
+
+def current_scope() -> Tuple[Optional[AbstractMesh], Dict]:
+    """This thread's (mesh, rules), for work that runs on another thread
+    to re-enter with ``sharding_scope(*scope)`` (a checkpoint's recompute
+    runs on autograd's device thread)."""
+    return _SCOPE.mesh, dict(_SCOPE.rules)
+
+
+def axis_size(physical: Union[str, Tuple[str, ...], None]) -> int:
+    """Product of mesh sizes of the given physical axes (1 if absent)."""
+    mesh = _SCOPE.mesh
+    if mesh is None or physical is None:
+        return 1
+    if isinstance(physical, str):
+        physical = (physical,)
+    n = 1
+    for a in physical:
+        if a in mesh.shape:
+            n *= mesh.shape[a]
+    return n
+
+
+def logical_axis_size(name: str) -> int:
+    return axis_size(_SCOPE.rules.get(name))
+
+
+def resolve(logical: Sequence[Logical],
+            shape: Optional[Sequence[int]] = None) -> Tuple[Entry, ...]:
+    """Map logical axis names to the reference's ``PartitionSpec`` entries
+    under the active rules and mesh: per dimension None, one physical axis
+    name, or a tuple of them.
+
+    When ``shape`` is given, any mesh axis that does not evenly divide its
+    dimension is dropped (uneven dims degrade to replication on that
+    axis). No physical axis is used twice."""
+    mesh = _SCOPE.mesh
+    axes_avail = set(mesh.axis_names) if mesh is not None else set()
+    mesh_shape = dict(mesh.shape) if mesh is not None else {}
+    out = []
+    used = set()
+
+    def phys(name, dim, cur):
+        if name is None:
+            return (), cur
+        mapped = _SCOPE.rules.get(name, None)
+        if mapped is None:
+            return (), cur
+        if isinstance(mapped, str):
+            mapped = (mapped,)
+        got = []
+        for a in mapped:
+            if a not in axes_avail or a in used:
+                continue
+            if dim is not None and dim % (cur * mesh_shape[a]) != 0:
+                continue
+            got.append(a)
+            cur *= mesh_shape[a]
+            used.add(a)
+        return tuple(got), cur
+
+    for i, item in enumerate(logical):
+        dim = shape[i] if shape is not None else None
+        subs = item if isinstance(item, tuple) else (item,)
+        parts = []
+        cur = 1
+        for sub in subs:
+            got, cur = phys(sub, dim, cur)
+            parts.extend(got)
+        if not parts:
+            out.append(None)
+        elif len(parts) == 1:
+            out.append(parts[0])
+        else:
+            out.append(tuple(parts))
+    return tuple(out)

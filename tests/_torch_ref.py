@@ -9,7 +9,11 @@ reference's own planner on the cases below, and writes what its kernels
 saw and returned to an ``.npz`` file. The alias lives and dies with that
 process: the test process never sees it.
 
-    python tests/_torch_ref.py OUT.npz grid|fused|planner|legs
+    python tests/_torch_ref.py OUT.npz grid|fused|planner|legs|split|moe_ep
+
+The mesh cases (``split``, ``moe_ep``) run the reference's sharded paths on
+a forced host-device count (``run_reference(..., host_devices=n)``), set in
+``XLA_FLAGS`` before the child imports jax.
 
 Cases are plain data, built into jobs by :func:`make_jobs` against either
 package's planner module, so both implementations plan identical inputs.
@@ -467,10 +471,57 @@ def loss_and_grads_both(pair, ref_impl: str, port_impl: str, batch: dict,
     return float(lj), float(lt.detach()), errs
 
 
-def run_reference(what: str, out: Path, timeout: float = 240.0
-                  ) -> Dict[str, np.ndarray]:
-    """Run this file as the reference child process; return its arrays."""
+# --- the mesh paths (tests/test_torch_cell_split.py, test_torch_moe_ep.py) --
+SPLIT_DEVICES = 3                      # does not divide the 64-cell bucket
+MOE_EP_DEVICES = 4
+MOE_EP_D, MOE_EP_F, MOE_EP_EXPERTS, MOE_EP_TOP_K = 16, 32, 8, 2
+MOE_EP_AUX_W = 0.5                     # aux's weight in the cases' loss
+# (name, (data, model) mesh, B, S, gated, shared experts, dense residual,
+# capacity factor): at factor 0.5 a token shard's capacity is 8 slots
+# where the global dispatch's is 16, so the shards drop assignments the
+# global dispatch keeps; T = 63 does not split over 2 data ranks, so
+# every rank sees all tokens.
+MOE_EP_CASES = (
+    ("2x2_drops", (2, 2), 4, 32, True, 0, False, 0.5),
+    ("1x4_shared", (1, 4), 4, 32, True, 1, False, 0.5),
+    ("4x1_ungated_dense", (4, 1), 4, 32, False, 0, True, 0.5),
+    ("2x1_odd_tokens_shared_dense", (2, 1), 1, 63, True, 1, True, 1.0),
+)
+
+
+def moe_ep_inputs(case) -> Dict[str, np.ndarray]:
+    """One MoE case's f32 weights in the reference's layout, its input x
+    [B, S, d] and the loss's cotangent for y, drawn from a seed."""
+    name, _, B, S, gated, n_shared, dense, _ = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    d, f, E = MOE_EP_D, MOE_EP_F, MOE_EP_EXPERTS
+
+    def w(*shape, scale=0.2):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    out = {"router": w(d, E, scale=1.0), "wu": w(E, d, f), "wd": w(E, f, d)}
+    if gated:
+        out["wg"] = w(E, d, f)
+    for pre, width in (("shared", f * n_shared), ("dense", 24 if dense
+                                                   else 0)):
+        if width:
+            out.update({f"{pre}_wu": w(d, width), f"{pre}_wd": w(width, d)})
+            if gated:
+                out[f"{pre}_wg"] = w(d, width)
+    out["x"] = w(B, S, d, scale=1.0)
+    out["cot"] = w(B, S, d, scale=1.0)
+    return out
+
+
+def run_reference(what: str, out: Path, timeout: float = 240.0,
+                  host_devices: int = 1) -> Dict[str, np.ndarray]:
+    """Run this file as the reference child process, with jax forced to
+    ``host_devices`` CPU devices; return its arrays."""
+    flags = " ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
+                     if "xla_force_host_platform_device_count" not in f)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"{flags} --xla_force_host_platform_device_count="
+                         f"{host_devices}".strip(),
                PYTHONPATH=os.pathsep.join(
                    [str(REPO / "src"), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run([sys.executable, __file__, str(out), what],
@@ -692,9 +743,79 @@ def _child_legs(out: Dict[str, np.ndarray]) -> None:
             out[f"legplan/{tag}/rescore/{k}"] = v
 
 
+def _child_split(out: Dict[str, np.ndarray]) -> None:
+    """The reference's ``plan_batch_jax(shard=True)`` over the forced
+    devices (its ``shard_map`` of the cell axis), and the tables it
+    scored."""
+    grid_jax, _ = _revive()
+    import jax
+    if jax.device_count() != SPLIT_DEVICES:
+        raise RuntimeError(f"{jax.device_count()} devices, not "
+                           f"{SPLIT_DEVICES}")
+    from repro.core.scheduler import overlay, planner
+    pl = planner.CarbonPlanner(make_ftns(overlay, SCALE_FTNS),
+                               batch_backend="jax")
+    real, seen = grid_jax.batch_cell_emissions, {}
+
+    def record(field, cells, **kw):
+        seen["shard"], seen["emis"] = kw["shard"], real(field, cells, **kw)
+        return seen["emis"]
+
+    grid_jax.batch_cell_emissions = record
+    plans = pl.plan_batch_jax(make_jobs(planner, SCALE_CASES["planner"]),
+                              shard=True)
+    if seen.get("shard") is not True:
+        raise RuntimeError("the reference did not score on its batch path")
+    for k, v in plan_arrays(plans).items():
+        out[f"split/plans/{k}"] = v
+    for j, e in enumerate(seen["emis"]):
+        out[f"split/emis/{j}"] = np.asarray(e)
+
+
+def _child_moe_ep(out: Dict[str, np.ndarray]) -> None:
+    """Each MOE_EP_CASES case through the reference's ``moe_ffn`` under a
+    ``(data, model)`` mesh and the ``"2d"`` rules (its ``shard_map``
+    expert-parallel branch): y, aux, and by ``jax.grad`` the gradient of
+    sum(y * cot) + MOE_EP_AUX_W * aux for every weight and for x."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import MoEConfig
+    from repro.models.moe import moe_ffn
+    from repro.runtime import pspec
+    devs = np.array(jax.devices())
+    if devs.size != MOE_EP_DEVICES:
+        raise RuntimeError(f"{devs.size} devices, not {MOE_EP_DEVICES}")
+    for case in MOE_EP_CASES:
+        name, shape, _, _, gated, n_shared, dense, cf = case
+        cfg = MoEConfig(n_experts=MOE_EP_EXPERTS, top_k=MOE_EP_TOP_K,
+                        d_ff_expert=MOE_EP_F, n_shared_experts=n_shared,
+                        dense_residual=dense, capacity_factor=cf)
+        arrs = {k: jnp.asarray(v) for k, v in moe_ep_inputs(case).items()}
+        cot = arrs.pop("cot")
+        x = arrs.pop("x")
+
+        def loss(p, x):
+            y, aux = moe_ffn(p, x, cfg, gated=gated)
+            return jnp.sum(y * cot) + MOE_EP_AUX_W * aux, (y, aux)
+
+        # jax.make_mesh gives Explicit axes on jax 0.9, and the reference's
+        # branch then fails on a reshape at 4 x 1 (ROADMAP caveats)
+        mesh = jax.sharding.Mesh(devs[:shape[0] * shape[1]].reshape(shape),
+                                 ("data", "model"))
+        with pspec.sharding_scope(mesh, "2d"):
+            (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+                loss, argnums=(0, 1), has_aux=True))(arrs, x)
+        out[f"{name}/y"] = np.asarray(y)
+        out[f"{name}/aux"] = np.asarray(aux)
+        out[f"{name}/grad/x"] = np.asarray(gx)
+        for k, g in gp.items():
+            out[f"{name}/grad/{k}"] = np.asarray(g)
+
+
 if __name__ == "__main__":
     path, what = Path(sys.argv[1]), sys.argv[2]
     arrays: Dict[str, np.ndarray] = {}
     {"grid": _child_grid, "fused": _child_fused,
-     "planner": _child_planner, "legs": _child_legs}[what](arrays)
+     "planner": _child_planner, "legs": _child_legs,
+     "split": _child_split, "moe_ep": _child_moe_ep}[what](arrays)
     np.savez(path, **arrays)

@@ -114,6 +114,14 @@ def test_no_port_file_calls_library_attention_or_a_compiler(path):
     assert not _NOT_A_KERNEL.findall(path.read_text()), path
 
 
+def test_no_port_file_uses_a_process_group():
+    """The port's meshes live in one process (``runtime/pspec.HostMesh``):
+    nothing starts a ``torch.distributed`` process group."""
+    group = re.compile(r"torch\.distributed|from torch import distributed")
+    assert [str(p.relative_to(REPO)) for p in PORT_FILES + [
+        REPO / "chip_smoke.py"] if group.search(p.read_text())] == []
+
+
 def test_without_cuda_serving_raises_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
