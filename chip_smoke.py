@@ -46,7 +46,14 @@ and drives the port's paths:
   against its plain version at the prefill's shapes (global, window 1024
   and a ragged length), then ``Server`` answering 8 requests of 2048-token
   prompts with 32 new tokens each, the cached logits checked against a
-  plain full forward and the flash prefill against the naive one;
+  plain full forward and the flash prefill against the naive one; then
+  (9b) the same prompts' prefill under a 1 x 4 ``HostMesh`` of the card
+  with ``seq_attn_rules("2d")``: sequence-parallel attention, each rank on
+  the blockwise path, the 40 local layers on the band of 1536 keys, each
+  call held as it happens to the naive path (relative RMS 1e-2) and the
+  logits to the unmeshed flash prefill (0.05 of max |logit|), a control
+  whose ranks' query offset is off by one key block failing both, the
+  meshed and unmeshed prefills timed;
 * training mamba2-370m at full width and depth (48 layers, d_model 1024,
   vocab 50280, 32 SSD heads of 64, d_state 128, chunk 256, random weights
   from a seed) on 8 x 2048-token batches: the SSD chunk-scan kernel
@@ -101,7 +108,10 @@ and drives the port's paths:
   gradient norms; every recompute routing as its forward), then three
   ``Trainer`` steps with their seconds, tokens/s, peak memory, launches
   and gCO2, and a profile of one more step; kimi-k2's cut also takes one
-  step under a 1 x 2 mesh (8 experts a rank), held to the unmeshed step.
+  step under a 1 x 2 mesh (8 experts a rank) and one under a 1 x 4 mesh
+  with ``seq_attn_rules("2d")`` (4 experts a rank, attention
+  sequence-parallel forward and backward, the routing replayed), each
+  held to the unmeshed step.
 
 Every phase that fails raises, so the exit code is non-zero; without a
 CUDA device the script exits 2 and prints no result. Each phase prints its
@@ -3162,25 +3172,27 @@ def moe_ep_ok(res: dict) -> bool:
             == res["ep_keep_mismatch"] == 0)
 
 
-class EPCalls:
-    """Counts the calls of the expert-parallel branch
-    (``moe.expert_parallel``, which ``moe_ffn`` looks up when it runs)."""
+class CallCount:
+    """Counts the calls of a module-level function that its callers look
+    up when they run: the expert-parallel branch (``moe.expert_parallel``,
+    looked up by ``moe_ffn``) or sequence-parallel attention
+    (``layers.seq_parallel_attention``, by the attention sub-layer)."""
 
-    def __init__(self, moe):
-        self.moe, self.n = moe, 0
+    def __init__(self, mod, name: str):
+        self.mod, self.name, self.n = mod, name, 0
 
     def __enter__(self):
-        self.real = self.moe.expert_parallel
+        self.real = getattr(self.mod, self.name)
 
         def counted(*a, **k):
             self.n += 1
             return self.real(*a, **k)
 
-        self.moe.expert_parallel = counted
+        setattr(self.mod, self.name, counted)
         return self
 
     def __exit__(self, *exc):
-        self.moe.expert_parallel = self.real
+        setattr(self.mod, self.name, self.real)
 
 
 def host_mesh(shape: tuple):
@@ -3226,7 +3238,7 @@ def moe_mesh_serving(M, model, run, tokens, fed, kernels: dict,
 
         def fn():
             with PS.sharding_scope(mesh, "2d"), rec, routing, \
-                    EPCalls(moe) as cnt:
+                    CallCount(moe, "expert_parallel") as cnt:
                 out["logits"], out["timing"] = cached_steps(M, model, run,
                                                             tokens, fed)
                 out["ep_calls"] = cnt.n
@@ -3272,59 +3284,258 @@ def moe_mesh_serving(M, model, run, tokens, fed, kernels: dict,
 def moe_mesh_train_step(M, adamw, cfg, run, batch, kernels: dict,
                         label: str) -> dict:
     """Phase 19 under a mesh: one train step (loss, aux and gradient norms,
-    no update) of the cut model unmeshed and under a 1 x 2 mesh of the
-    card with the ``"2d"`` rules (one token shard, so the single-device
-    capacities; each rank runs half the experts): loss and aux within
-    STEP_LOSS_TOL_REL and STEP_AUX_TOL_REL, the gradient norms within
-    STEP_GNORM_TOL_REL, each step profiled with its wall, the same
-    launches of ``kernels``, and every MoE call, the recompute's too,
-    through the expert-parallel branch."""
-    from repro_torch.models import moe
+    no update) of the cut model unmeshed, under a 1 x 2 mesh of the card
+    with the ``"2d"`` rules (one token shard, so the single-device
+    capacities; each rank runs half the experts), and under a 1 x 4 mesh
+    with ``seq_attn_rules("2d")`` (4 experts a rank; attention
+    sequence-parallel forward and backward, so the flash kernel is not
+    launched), the last routing with the unmeshed step's choices
+    (:class:`RouteReplay`: the blockwise attention's bf16 rounding would
+    flip near-tied choices). Each within STEP_LOSS_TOL_REL (loss),
+    STEP_AUX_TOL_REL (aux) and STEP_GNORM_TOL_REL (gradient norms) of the
+    unmeshed step, each profiled with its wall and peak memory, every MoE
+    call, the recompute's too, through the expert-parallel branch; the
+    1 x 2 step launches ``kernels`` as the unmeshed one."""
+    from repro_torch.models import layers, moe
     from repro_torch.runtime import pspec as PS
     model = M.build_model(cfg, seed=SEED, device=DEVICE).requires_grad_(True)
     n_moe = sum(1 for layer in model.decoder.layers
                 if layer.spec.is_moe and layer.spec.has_ffn)
-    rows = {}
-    for name, shape in (("unmeshed", None), ("mesh_1x2", (1, 2))):
+    n_attn = sum(1 for layer in model.decoder.layers
+                 if layer.spec.mixer == "attn")
+    rows, replay = {}, RouteReplay(moe)
+    for name, shape, rules in (
+            ("unmeshed", None, "2d"), ("mesh_1x2", (1, 2), "2d"),
+            ("mesh_1x4_seq", SEQ_MESH, PS.seq_attn_rules("2d"))):
         mesh = None if shape is None else host_mesh(shape)
         before = {n: w.launches for n, (w, _) in kernels.items()}
+        routing = {"unmeshed": replay.record,
+                   "mesh_1x4_seq": replay.replay}.get(
+            name, contextlib.nullcontext)()
         out = {}
 
         def fn():
-            with PS.sharding_scope(mesh, "2d"), EPCalls(moe) as cnt:
+            with PS.sharding_scope(mesh, rules), routing, \
+                    CallCount(moe, "expert_parallel") as cnt, \
+                    CallCount(layers, "seq_parallel_attention") as seq:
                 out.update(moe_step_terms(M, adamw, model, run, batch))
-            out["ep_calls"] = cnt.n
+            out["ep_calls"], out["seq_calls"] = cnt.n, seq.n
 
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         ev = device_events(fn)
         rows[name] = {**out, "wall_s": time.perf_counter() - t0, **ev,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                       "launches": {n: w.launches - before[n]
                                    for n, (w, _) in kernels.items()}}
-    u, m = rows["unmeshed"], rows["mesh_1x2"]
+    u, m, q = rows["unmeshed"], rows["mesh_1x2"], rows["mesh_1x4_seq"]
+
+    def diffs(r, pre):
+        return {f"{pre}{k}_rel_diff": _rel(r[k], u[k])
+                for k in ("loss", "aux", "gnorm", "router_gnorm")}
+
     res = {"arch": cfg.name, "experts": cfg.moe.n_experts,
-           "experts_a_rank": cfg.moe.n_experts // 2, "moe_layers": n_moe,
+           "experts_a_rank": cfg.moe.n_experts // 2,
+           "seq_experts_a_rank": cfg.moe.n_experts // SEQ_MESH[1],
+           "moe_layers": n_moe, "attn_layers": n_attn,
            "tokens": list(batch["tokens"].shape),
-           "loss_rel_diff": _rel(m["loss"], u["loss"]),
-           "aux_rel_diff": _rel(m["aux"], u["aux"]),
-           "gnorm_rel_diff": _rel(m["gnorm"], u["gnorm"]),
-           "router_gnorm_rel_diff": _rel(m["router_gnorm"],
-                                         u["router_gnorm"]),
+           **diffs(m, ""), **diffs(q, "seq_"),
+           "seq_replayed_route_calls": len(replay.choices),
+           "seq_replay_calls_left": replay.left,
+           "seq_replay_flips": replay.flips,
            "tol_loss_rel": STEP_LOSS_TOL_REL, "tol_aux_rel": STEP_AUX_TOL_REL,
            "tol_gnorm_rel": STEP_GNORM_TOL_REL, **rows}
     emit({f"{label}_mesh_train_step": res})
     del model
     torch.cuda.empty_cache()
-    if not (all(math.isfinite(m[k]) for k in ("loss", "gnorm", "aux"))
-            and res["loss_rel_diff"] <= STEP_LOSS_TOL_REL
-            and res["aux_rel_diff"] <= STEP_AUX_TOL_REL
-            and res["gnorm_rel_diff"] <= STEP_GNORM_TOL_REL
-            and res["router_gnorm_rel_diff"] <= STEP_GNORM_TOL_REL
-            and u["ep_calls"] == 0 and m["ep_calls"] == 2 * n_moe > 0
-            and m["launches"] == u["launches"]
-            == {n: e for n, (_, e) in kernels.items()}):
+    want = {n: e for n, (_, e) in kernels.items()}
+    ok = all(all(math.isfinite(r[k]) for k in ("loss", "gnorm", "aux"))
+             for r in (m, q))
+    for pre in ("", "seq_"):
+        ok = ok and (res[f"{pre}loss_rel_diff"] <= STEP_LOSS_TOL_REL
+                     and res[f"{pre}aux_rel_diff"] <= STEP_AUX_TOL_REL
+                     and res[f"{pre}gnorm_rel_diff"] <= STEP_GNORM_TOL_REL
+                     and res[f"{pre}router_gnorm_rel_diff"]
+                     <= STEP_GNORM_TOL_REL)
+    if not (ok and u["ep_calls"] == 0 and u["seq_calls"] == 0
+            and m["ep_calls"] == q["ep_calls"] == 2 * n_moe > 0
+            and m["seq_calls"] == 0 and q["seq_calls"] == 2 * n_attn > 0
+            and res["seq_replayed_route_calls"] == 2 * n_moe
+            and res["seq_replay_calls_left"] == 0
+            and m["launches"] == u["launches"] == want
+            and q["launches"] == {n: 0 for n in want}):
         raise RuntimeError(f"{label} train step under the mesh disagrees "
                            f"with the unmeshed one: {res}")
     return m["launches"]
+
+
+# --- 9b, 19: sequence-parallel attention ------------------------------------
+#
+# Under seq_attn_rules the heads do not split over 'model': self-attention
+# splits its queries over the model axis instead (models/layers.py
+# ``seq_parallel_attention``), each rank on the blockwise path (the flash
+# kernel takes no query offset), a sliding-window layer's rank on the band
+# of Sl + window keys its queries can see.
+SEQ_MESH = (1, 4)              # (data, model): the sequence over 4 ranks
+# Each call against the naive path in f32 on the same bf16 inputs: the
+# ranks' bf16 outputs sit ~3e-3 from it (one rounding); a rank attending
+# the wrong keys moves it by O(1).
+SEQ_ATTN_TOL_REL_RMS = 1e-2
+
+
+class SeqAttnCheck:
+    """Checks every call of sequence-parallel attention as it happens
+    (``layers.seq_parallel_attention``, which the attention sub-layer
+    looks up at call time), storing nothing: its output against the
+    naive path in f32 over the whole sequence on the same inputs
+    (relative RMS), and its path, told by the key length each rank's
+    attention (``layers._sdpa`` / ``_blockwise_sdpa``) sees: ``band`` (Sl
+    + window keys), ``full`` (all) or ``other``. With ``shift`` every
+    rank's query offset moves by that many positions (the control)."""
+
+    def __init__(self, layers, shift: int = 0):
+        self.layers, self.shift = layers, shift
+        self.kinds = {"band": 0, "full": 0, "other": 0}
+        self.paths: set = set()
+        self.errs: list = []
+
+    def __enter__(self):
+        L = self.layers
+        self.real = (L.seq_parallel_attention, L.rank_attention, L._sdpa,
+                     L._blockwise_sdpa)
+        seq, rank, sdpa, blockwise = self.real
+        keys: list = []
+
+        def recorded(path, fn):
+            def f(q, k, *a, **kw):
+                keys.append((path, k.shape[1]))
+                return fn(q, k, *a, **kw)
+            return f
+
+        def shifted(*a, q_start, **kw):
+            return rank(*a, q_start=q_start + self.shift, **kw)
+
+        def checked(q, k, v, *, causal, window, impl, block_kv):
+            keys.clear()
+            out = seq(q, k, v, causal=causal, window=window, impl=impl,
+                      block_kv=block_kv)
+            S, n = q.shape[1], len(keys)
+            lens = {ln for _, ln in keys}
+            if window is not None and lens == {S // n + window} \
+                    and S // n + window < S:
+                self.kinds["band"] += 1
+            elif lens == {S}:
+                self.kinds["full"] += 1
+            else:
+                self.kinds["other"] += 1
+            self.paths.update(p for p, _ in keys)
+            pos = torch.arange(S, device=q.device)
+            want = sdpa(q.float(), k.float(), v.float(),
+                        L._mask(pos, pos, causal, window),
+                        1.0 / math.sqrt(q.shape[-1]))
+            self.errs.append(float((out.float() - want).norm()
+                                   / want.norm()))
+            del want
+            return out
+
+        L.seq_parallel_attention = checked
+        if self.shift:
+            L.rank_attention = shifted
+        L._sdpa = recorded("naive", sdpa)
+        L._blockwise_sdpa = recorded("blockwise", blockwise)
+        return self
+
+    def __exit__(self, *exc):
+        L = self.layers
+        (L.seq_parallel_attention, L.rank_attention, L._sdpa,
+         L._blockwise_sdpa) = self.real
+
+    def summary(self) -> dict:
+        return {"calls": len(self.errs), **self.kinds,
+                "paths": sorted(self.paths),
+                "max_rel_rms": max(self.errs, default=math.nan),
+                "min_rel_rms": min(self.errs, default=math.nan)}
+
+
+def seq_prefill(M, model, run, tokens, logits, flash, card: str) -> tuple:
+    """Phase 9b: the served model's prefill of ``tokens`` (gemma3-12b:
+    48 layers, 4 x 2048 tokens) under a 1 x 4 mesh of the card with
+    ``seq_attn_rules("2d")``: the 40 local layers on the band, the 8
+    global ones on all keys. Gate 1 (:class:`SeqAttnCheck`): every call
+    within SEQ_ATTN_TOL_REL_RMS of the naive path, and every call of a
+    control whose ranks' query offset is off by one key block
+    (``run.attn_block_kv`` positions) past it. Gate 2: the last
+    position's logits within LOGIT_TOL_REL of the unmeshed prefill on the
+    flash path (``logits``, the served run's), the control's past it. The
+    meshed and unmeshed prefills are timed (device events and ms) on
+    their own. Returns (the result, the timed unmeshed prefill's flash
+    launches)."""
+    from repro_torch.models import layers
+    from repro_torch.runtime import pspec as PS
+    rules = PS.seq_attn_rules("2d")
+    mesh = host_mesh(SEQ_MESH)
+    rows = {}
+    for name, scope in (("unmeshed", contextlib.nullcontext),
+                        ("mesh_1x4", lambda: PS.sharding_scope(mesh,
+                                                               rules))):
+        before = flash.launches
+        out = {}
+
+        def fn():
+            with scope(), CallCount(layers, "seq_parallel_attention") as c:
+                out["logits"], cache = M.prefill(model, run, tokens, S_MAX)
+                del cache
+            out["seq_calls"] = c.n
+
+        ev = device_events(fn)
+        rows[name] = {**ev, "seq_calls": out["seq_calls"],
+                      "flash_launches": flash.launches - before,
+                      "timed_vs_served_rel": rel_err(out["logits"], logits)}
+    checks, got = {}, {}
+    for name, shift in (("check", 0), ("control", run.attn_block_kv)):
+        before = flash.launches
+        with PS.sharding_scope(mesh, rules), \
+                SeqAttnCheck(layers, shift) as chk:
+            got[name], cache = M.prefill(model, run, tokens, S_MAX)
+            del cache
+        torch.cuda.synchronize()
+        checks[name] = {**chk.summary(),
+                        "flash_launches": flash.launches - before,
+                        "logits_vs_unmeshed_flash_rel": rel_err(got[name],
+                                                                logits)}
+    n_layers = len(model.decoder.layers)
+    n_global = sum(layer.spec.is_global for layer in model.decoder.layers)
+    c, k = checks["check"], checks["control"]
+    res = {"arch": model.cfg.name, "tokens": list(tokens.shape),
+           "mesh": list(SEQ_MESH), "rules": "seq_attn_rules(2d)",
+           "ranks_queries": tokens.shape[1] // SEQ_MESH[1],
+           "window": model.cfg.sliding_window,
+           "block_kv": run.attn_block_kv, "control_shift": run.attn_block_kv,
+           "tol_rel_rms": SEQ_ATTN_TOL_REL_RMS,
+           "logit_tol_rel": LOGIT_TOL_REL, "check": c, "control": k,
+           "finite": bool(torch.isfinite(got["check"]).all()),
+           "device_ms_mesh_over_unmeshed": rows["mesh_1x4"]["device_ms"]
+           / rows["unmeshed"]["device_ms"], **rows, "card": card}
+    emit({"seq_prefill": res})
+    del got
+    torch.cuda.empty_cache()
+    if not (res["finite"] and c["calls"] == n_layers
+            and c["band"] == n_layers - n_global and c["full"] == n_global
+            and c["other"] == 0 and c["paths"] == ["blockwise"]
+            and c["max_rel_rms"] <= SEQ_ATTN_TOL_REL_RMS
+            and k["calls"] == n_layers
+            and k["min_rel_rms"] > SEQ_ATTN_TOL_REL_RMS
+            and c["logits_vs_unmeshed_flash_rel"] <= LOGIT_TOL_REL
+            and k["logits_vs_unmeshed_flash_rel"] > LOGIT_TOL_REL
+            and c["flash_launches"] == k["flash_launches"] == 0
+            and rows["mesh_1x4"]["flash_launches"] == 0
+            and rows["mesh_1x4"]["seq_calls"] == n_layers
+            and rows["unmeshed"]["seq_calls"] == 0
+            and rows["unmeshed"]["flash_launches"] == n_layers):
+        raise RuntimeError(f"prefill under sequence-parallel attention "
+                           f"failed: {res}")
+    return res, rows["unmeshed"]["flash_launches"]
 
 
 def main() -> int:
@@ -3519,9 +3730,18 @@ def main() -> int:
     # 9. logits: cached path against the plain full forward
     check_logits(M, srv, probe)
     emit({"profile": profile_serving(M, srv, probe.epochs[0]["tokens"])})
+    clock.mark("8-9 serving")
+
+    # 9b. the same prefill under a 1 x 4 mesh of the card with
+    # seq_attn_rules: sequence-parallel attention, the band on the local
+    # layers, each call and the logits held to the unmeshed path
+    _, seq_flash = seq_prefill(M, srv.model, srv.run,
+                               probe.epochs[0]["tokens"],
+                               probe.epochs[0]["logits"][0],
+                               fa.flash_attention, card)
     del srv, probe
     torch.cuda.empty_cache()
-    clock.mark("8-9 serving")
+    clock.mark("9b seq-parallel prefill")
 
     # 10. training mamba2-370m: the SSD kernel against its plain version, one
     # step on the kernel path against the plain path, then the Trainer
@@ -3559,7 +3779,8 @@ def main() -> int:
     flash_usage = ptxas_usage(built[fa._SOURCE.name][1], FLASH_KERNEL)
     ecfg = get_config(ENCDEC_ARCH)
     flash_cases += check_flash(fa, ecfg, flash_usage, ENCDEC_FLASH_CASES)
-    flash_paths = {"8 serve gemma3-12b": flash_launches}
+    flash_paths = {"8 serve gemma3-12b": flash_launches,
+                   "9b gemma3 prefill timed beside the mesh": seq_flash}
     for path, n in family_paths(
             fa, M, adamw, ecfg, RunConfig(arch=ENCDEC_ARCH, attn_impl="flash",
                                           remat="none", seed=SEED),

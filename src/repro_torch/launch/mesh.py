@@ -1,8 +1,7 @@
 """Host meshes (the reference's ``launch/mesh.py``).
 
-A function, never a module-level constant, so importing this module
-touches no device. The production meshes (``make_production_mesh``) wait
-for ROADMAP.md queue 1 item 11.
+Functions, never module-level constants, so importing this module
+touches no device.
 """
 from __future__ import annotations
 
@@ -11,7 +10,18 @@ from typing import Optional, Union
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.runtime.pspec import HostMesh
+from repro_torch.runtime.pspec import AbstractMesh, HostMesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production mesh as a shape-only mesh: one pod,
+    ``(data=16, model=16)`` = 256 chips, or two, ``(pod=2, data=16,
+    model=16)`` = 512, whose 'pod' axis is pure data parallelism. It has no
+    devices: one process cannot hold 256 cards. It resolves specs and
+    shard shapes (``pspec.named_sharding``) and places nothing."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
 
 
 def make_host_mesh(n_devices: int = 0, *,

@@ -15,27 +15,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.params import block_period, tree_leaves, tree_map
+from repro_torch.models.params import tree_map, unstack_leaves
 
 
 def unstack(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """A stacked tree of tensors -> ``{state_dict key: tensor}``; each
-    layer's tensor is a view of the stacked one, not a copy."""
-    period = block_period(cfg)
-    out: Dict[str, torch.Tensor] = {}
-    for path, t in tree_leaves(tree):
-        if path[:2] == ("decoder", "blocks"):
-            i = int(path[2][len("sub"):])
-            rest = ".".join(path[3:])
-            for g in range(t.shape[0]):
-                out[f"decoder.layers.{g * period + i}.{rest}"] = t[g]
-        elif path[:2] == ("encoder", "blocks"):
-            rest = ".".join(path[2:])
-            for i in range(t.shape[0]):
-                out[f"encoder.layers.{i}.{rest}"] = t[i]
-        else:
-            out[".".join(path)] = t
-    return out
+    """A stacked tree of tensors -> ``{state_dict key: tensor}``
+    (``params.unstack_leaves``); each layer's tensor is a view of the
+    stacked one, not a copy."""
+    return unstack_leaves(tree, cfg, lambda t, j: t[j])
 
 
 def _to_tensor(a: Any, device: Optional[Union[str, torch.device]]

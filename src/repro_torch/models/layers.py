@@ -11,8 +11,9 @@ so the same code path serves prefill, decode against a ring-buffer KV cache
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -131,6 +132,147 @@ def _blockwise_sdpa(q, k, v, q_pos, kv_pos, causal, window, scale,
         m = m_cur
     out = acc / torch.clamp_min(l[..., None], 1e-37)
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, nq, h).to(v.dtype)
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    """A spec entry's mesh axes: None, one name, or a tuple of names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _block(entry, coord: Dict[str, int], mesh) -> Tuple[int, int]:
+    """(index, count) of the block that mesh coordinate ``coord`` holds
+    along a dimension whose spec entry is ``entry``: row-major over the
+    entry's axes, as ``shard_map`` numbers them."""
+    idx, n = 0, 1
+    for a in _axes(entry):
+        idx = idx * mesh.shape[a] + coord[a]
+        n *= mesh.shape[a]
+    return idx, n
+
+
+def _join(blocks: Dict[Tuple[int, ...], torch.Tensor],
+          counts: Sequence[int], prefix: Tuple[int, ...] = ()
+          ) -> torch.Tensor:
+    """The tensor whose block ``idx`` along each dimension is
+    ``blocks[idx]``, joined dimension by dimension in block order."""
+    d = len(prefix)
+    if d == len(counts):
+        return blocks[prefix]
+    parts = [_join(blocks, counts, prefix + (i,)) for i in range(counts[d])]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
+
+
+def shard_map(f: Callable[..., torch.Tensor], *, mesh: PS.HostMesh,
+              in_specs: Sequence[Tuple], out_specs: Tuple) -> Callable:
+    """The counterpart of the reference's ``shard_map_compat`` over a
+    :class:`~repro_torch.runtime.pspec.HostMesh`, as a loop: the mapped
+    function calls ``f(coord, *slices)`` once per mesh coordinate, in
+    row-major order, where ``coord`` maps each axis name to this
+    coordinate's index on it (the counterpart of ``lax.axis_index``) and
+    each argument is sliced by its spec in ``in_specs`` and moved to the
+    coordinate's device. ``f`` returns one tensor; the outputs are
+    assembled by ``out_specs`` on the first argument's device, and must
+    tile: every coordinate's output of one shape. Along mesh axes that
+    ``out_specs`` does not name the outputs are replicas and the first is
+    kept, as the reference's ``check_vma=False`` takes one. There are no
+    collectives: ``f`` sees only its own slices. Autograd runs through
+    the slices, moves and joins."""
+    if not isinstance(mesh, PS.HostMesh):
+        raise TypeError(f"shard_map needs a HostMesh, not "
+                        f"{type(mesh).__name__}: a shape-only mesh places "
+                        f"nothing")
+
+    def mapped(*args: torch.Tensor) -> torch.Tensor:
+        if len(args) != len(in_specs):
+            raise ValueError(f"{len(args)} arguments for {len(in_specs)} "
+                             f"in_specs")
+        blocks: Dict[Tuple[int, ...], torch.Tensor] = {}
+        shapes = set()
+        for pos in np.ndindex(*mesh.devices.shape):
+            coord = dict(zip(mesh.axis_names, (int(i) for i in pos)))
+            local = []
+            for a, spec in zip(args, in_specs):
+                for d, entry in enumerate(spec):
+                    i, n = _block(entry, coord, mesh)
+                    if a.shape[d] % n:
+                        raise ValueError(f"dimension {d} of {tuple(a.shape)}"
+                                         f" does not split over "
+                                         f"{_axes(entry)}")
+                    size = a.shape[d] // n
+                    a = a.narrow(d, i * size, size)
+                local.append(a.to(mesh.devices[pos]))
+            y = f(coord, *local)
+            shapes.add(tuple(y.shape))
+            key = tuple(_block(e, coord, mesh)[0] for e in out_specs)
+            if key not in blocks:
+                blocks[key] = y.to(args[0].device)
+        if len(shapes) != 1:
+            raise ValueError(f"outputs of shapes {sorted(shapes)} do not "
+                             f"tile")
+        counts = [_block(e, dict.fromkeys(mesh.axis_names, 0), mesh)[1]
+                  for e in out_specs]
+        return _join(blocks, counts)
+
+    return mapped
+
+
+def rank_attention(q, k, v, *, q_start: int, causal: bool,
+                   window: Optional[int], impl: str,
+                   block_kv: int) -> torch.Tensor:
+    """One rank of :func:`seq_parallel_attention`: queries q [B, Sl, nq,
+    h] at positions ``q_start .. q_start + Sl - 1`` over the whole
+    sequence's k/v [B, S_kv, nkv, h] at positions ``0 .. S_kv - 1``.
+
+    A causal sliding window with ``Sl + window < S_kv`` attends a band:
+    this rank's queries see only [q_start - window + 1, q_start + Sl), so
+    the ``Sl + window`` keys from ``clip(q_start - window, 0, S_kv -
+    band)`` are sliced out (gemma3-12b's local layers at 4 x 2048 tokens
+    over 4 ranks: 1536 of 2048 keys a rank). Then the naive path for
+    ``impl == "naive"`` or a key length of at most ``block_kv``, else the
+    blockwise one (``flash`` included, as the reference sends
+    ``pallas`` there: its kernel takes no query offset)."""
+    Sl, S_kv = q.shape[1], k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    q_pos = q_start + torch.arange(Sl, device=q.device)
+    start = 0
+    if window is not None and causal and Sl + window < S_kv:
+        band = Sl + window
+        start = min(max(q_start - window, 0), S_kv - band)
+        k, v = k[:, start:start + band], v[:, start:start + band]
+    kv_pos = start + torch.arange(k.shape[1], device=q.device)
+    if impl == "naive" or k.shape[1] <= block_kv:
+        return _sdpa(q, k, v, _mask(q_pos, kv_pos, causal, window), scale)
+    return _blockwise_sdpa(q, k, v, q_pos, kv_pos, causal, window, scale,
+                           block_kv)
+
+
+def seq_parallel_attention(q, k, v, *, causal: bool, window: Optional[int],
+                           impl: str, block_kv: int) -> torch.Tensor:
+    """Context-parallel self-attention (the reference's
+    ``seq_parallel_attention``): the QUERY sequence splits over the
+    'model' axis of the active :class:`~repro_torch.runtime.pspec.HostMesh`
+    (``seq_model``), the batch over the batch axes, k/v are whole on every
+    rank; rank ``r`` of the model axis attends its queries from position
+    ``r * Sl`` (:func:`rank_attention`) and the ranks' outputs join in
+    order (:func:`shard_map`). Chosen where splitting the heads would pad
+    the KV heads over the model axis (``use_seq_parallel``)."""
+    spec_q = PS.resolve(("batch", "seq_model", None, None), shape=q.shape)
+    spec_kv = PS.resolve(("batch", None, None, None), shape=k.shape)
+    if spec_q[1] is None:
+        raise ValueError(f"no model axis splits the sequence of "
+                         f"{q.shape[1]} under the active scope")
+    mesh = PS.active_mesh()
+
+    def local(coord, ql, kl, vl):
+        r, _ = _block(spec_q[1], coord, mesh)
+        return rank_attention(ql, kl, vl, q_start=r * ql.shape[1],
+                              causal=causal, window=window, impl=impl,
+                              block_kv=block_kv)
+
+    return shard_map(local, mesh=mesh, in_specs=(spec_q, spec_kv, spec_kv),
+                     out_specs=spec_q)(q, k, v)
 
 
 def use_seq_parallel(q, k) -> bool:

@@ -1,5 +1,6 @@
 """Model-level API: the ``Transformer`` module, embedding, losses,
-prefill/decode steps, the plain full forward and ``make_batch``.
+prefill/decode steps, the plain full forward, ``input_specs`` (meta-tensor
+stand-ins for a cell's inputs) and ``make_batch``.
 
 Batch layouts per shape kind, as in the reference's ``models/model.py``:
   train:   {tokens [B,S_txt], targets [B,S_txt], (+frontend)}
@@ -26,6 +27,7 @@ from repro_torch.models.layers import check_attn_impl
 from repro_torch.models.params import init_params
 from repro_torch.models.transformer import (Cache, Decoder, Encoder,
                                             ParamGroup)
+from repro_torch.runtime import pspec as PS
 
 AUDIO_DOWNSAMPLE = 4  # audio frontend emits one frame per 4 target positions
 
@@ -72,8 +74,9 @@ def embed(model: Transformer, tokens: torch.Tensor,
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     # the scale is rounded to the param dtype first: bf16 gives 62.0 for
     # sqrt(3840), as the reference's jnp.asarray(d ** 0.5, x.dtype) does
-    return x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype,
-                            device=x.device)
+    x = x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype,
+                         device=x.device)
+    return PS.logical_constraint(x, ("batch", None, None))
 
 
 def encode(model: Transformer, run: RunConfig,
@@ -91,7 +94,7 @@ def encode(model: Transformer, run: RunConfig,
 def unembed(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     w = (model.embed.tok.T if model.cfg.tie_embeddings
          else model.lm_head)
-    return x @ w.to(x.dtype)
+    return PS.logical_constraint(x @ w.to(x.dtype), ("batch", None, "vocab"))
 
 
 # ------------------------------------------------------------------ loss ---
@@ -197,34 +200,56 @@ def text_len(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len - (cfg.n_frontend_tokens if cfg.family == "vlm" else 0)
 
 
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, object]:
+    """Meta-tensor stand-ins (no storage) for every model input of a cell,
+    as the reference's: train ``tokens``/``targets`` int32 [B, S_txt],
+    prefill ``tokens``, with an ``encdec``'s f32 ``frames`` [B, S//4, d]
+    or a ``vlm``'s f32 ``patches`` [B, P, d]; decode ``token`` [B, 1], the
+    ``cache`` of an S-token context (:func:`KC.abstract_cache`) and
+    ``cur`` (an int32 scalar; the model API takes an int)."""
+    B, S = shape.global_batch, shape.seq_len
+    stl = text_len(cfg, S)
+
+    def meta(*size, dt=torch.int32):
+        return torch.empty(size, dtype=dt, device="meta")
+
+    if shape.kind == "decode":
+        enc_len = S // AUDIO_DOWNSAMPLE if cfg.family == "encdec" else 0
+        return {"token": meta(B, 1),
+                "cache": KC.abstract_cache(cfg, B, S, enc_len),
+                "cur": meta()}
+    if shape.kind not in ("train", "prefill"):
+        raise ValueError(f"unknown shape kind {shape.kind!r}")
+    spec: Dict[str, object] = {"tokens": meta(B, stl)}
+    if shape.kind == "train":
+        spec["targets"] = meta(B, stl)
+    if cfg.family == "encdec":
+        spec["frames"] = meta(B, S // AUDIO_DOWNSAMPLE, cfg.d_model,
+                              dt=torch.float32)
+    if cfg.family == "vlm":
+        spec["patches"] = meta(B, cfg.n_frontend_tokens, cfg.d_model,
+                               dt=torch.float32)
+    return spec
+
+
 def make_batch(cfg: ModelConfig, shape: ShapeConfig,
                generator: torch.Generator) -> Dict[str, object]:
-    """Random inputs of one shape kind on the CPU, drawn with
-    ``generator``: token ids uniform in ``[0, min(vocab, 255))`` (the
-    reference's range) over the text length, and for train and prefill an
-    ``encdec``'s f32 ``frames`` [B, S//4, d] or a ``vlm``'s f32 ``patches``
-    [B, 256, d], normals times 0.02 as the reference draws them."""
-    b, hi = shape.global_batch, min(cfg.vocab_size, 255)
-    s, stl = shape.seq_len, text_len(cfg, shape.seq_len)
-
-    def ids(*size):
-        return torch.randint(0, hi, size, generator=generator,
-                             dtype=torch.int64)
-
-    def embeddings(n):
-        return torch.randn((b, n, cfg.d_model), generator=generator) * 0.02
-
-    if shape.kind not in ("train", "prefill", "decode"):
-        raise ValueError(f"unknown shape kind {shape.kind!r}")
-    if shape.kind == "decode":
-        enc_len = s // AUDIO_DOWNSAMPLE if cfg.family == "encdec" else 0
-        return {"token": ids(b, 1),
-                "cache": KC.zero_cache(cfg, b, s, enc_len), "cur": 0}
-    out: Dict[str, object] = {"tokens": ids(b, stl)}
-    if shape.kind == "train":
-        out["targets"] = ids(b, stl)
-    if cfg.family == "encdec":
-        out["frames"] = embeddings(s // AUDIO_DOWNSAMPLE)
-    if cfg.family == "vlm":
-        out["patches"] = embeddings(cfg.n_frontend_tokens)
+    """:func:`input_specs` realized on the CPU, drawn with ``generator``
+    in their order: token ids (int64) uniform in ``[0, min(vocab, 255))``
+    (the reference's range), an ``encdec``'s ``frames`` or a ``vlm``'s
+    ``patches`` as f32 normals times 0.02 as the reference draws them,
+    and for decode a zeroed cache and ``cur`` 0."""
+    hi = min(cfg.vocab_size, 255)
+    out: Dict[str, object] = {}
+    for k, t in input_specs(cfg, shape).items():
+        if k == "cache":
+            out[k] = [{n: torch.zeros(c.shape, dtype=c.dtype)
+                       for n, c in sub.items()} for sub in t]
+        elif k == "cur":
+            out[k] = 0
+        elif t.dtype == torch.int32:
+            out[k] = torch.randint(0, hi, tuple(t.shape), generator=generator,
+                                   dtype=torch.int64)
+        else:
+            out[k] = torch.randn(tuple(t.shape), generator=generator) * 0.02
     return out

@@ -252,8 +252,11 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig, *,
         top_p, top_i, aux = route(p["router"], xt, cfg)
         cap = capacity(T, cfg)
         e_flat, slot, keep = dispatch_indices(top_i, cfg.n_experts, cap)
-        buf = scatter(xt, e_flat, slot, keep, cfg.n_experts, cap, cfg.top_k)
-        out_buf = experts(p, buf, gated)
+        buf = PS.logical_constraint(
+            scatter(xt, e_flat, slot, keep, cfg.n_experts, cap, cfg.top_k),
+            ("expert", "capacity", None))
+        out_buf = PS.logical_constraint(experts(p, buf, gated),
+                                        ("expert", "capacity", None))
         y = combine(out_buf, e_flat, slot, top_p, keep,
                     cfg.top_k).to(x.dtype)
     if cfg.n_shared_experts:

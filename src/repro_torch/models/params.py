@@ -2,8 +2,11 @@
 and init for every weight, the same tree as the reference's
 ``models/params.py``. :func:`init_params` realizes it as torch tensors from
 a ``torch.Generator`` with the reference's init distributions (the values
-differ from JAX's for the same seed). The logical axes are kept as inert
-data: the port does not shard yet.
+differ from JAX's for the same seed). :func:`unstack_leaves` names the
+stacked leaves by layer, the port's layout; :func:`abstract_params`,
+:func:`param_logical_axes` and :func:`param_shardings` give the same tree
+in that layout as meta tensors, logical axes and ``NamedSharding``
+records (the reference's dry-run trees; the port places nothing).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.runtime import pspec
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # elements of a normal leaf drawn at once (1 GiB in f32): init's peak is
@@ -28,7 +32,7 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    logical: Tuple[Any, ...]          # logical axis per dim (inert here)
+    logical: Tuple[Any, ...]          # logical axis per dim (see runtime.pspec)
     init: str = "normal"              # normal | zeros | ones | ssm_a | ssm_dt
     scale: float = 0.02
     dtype: Optional[str] = None       # default: cfg.dtype
@@ -249,6 +253,67 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             node = node.setdefault(k, {})
         node[path[-1]] = _init_leaf(spec, cfg, gen, device)
     return out
+
+
+def unstack_leaves(tree: Dict[str, Any], cfg: ModelConfig,
+                   take: Callable[[Any, int], Any]) -> Dict[str, Any]:
+    """A tree in the reference's stacked layout -> ``{state dict key:
+    take(leaf, j)}``: decoder layer ``g * period + i`` takes
+    ``take(blocks["sub{i}"][...], g)``, encoder layer ``i`` takes
+    ``take(encoder.blocks[...], i)``; the other leaves keep their paths,
+    joined with dots, and are not passed to ``take``."""
+    period = block_period(cfg)
+    out: Dict[str, Any] = {}
+    for path, leaf in tree_leaves(tree):
+        if path[:2] == ("decoder", "blocks"):
+            i = int(path[2][len("sub"):])
+            rest = ".".join(path[3:])
+            for g in range(n_groups(cfg)):
+                out[f"decoder.layers.{g * period + i}.{rest}"] = take(leaf, g)
+        elif path[:2] == ("encoder", "blocks"):
+            rest = ".".join(path[2:])
+            for i in range(cfg.encoder_layers):
+                out[f"encoder.layers.{i}.{rest}"] = take(leaf, i)
+        else:
+            out[".".join(path)] = leaf
+    return out
+
+
+def _unstacked_spec(spec: ParamSpec, _: int) -> ParamSpec:
+    """A stacked leaf's spec for one layer: the group axis dropped."""
+    return dataclasses.replace(spec, shape=spec.shape[1:],
+                               logical=spec.logical[1:])
+
+
+def layer_spec_tree(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """The spec tree in the port's layout: ``{state dict key: spec}``."""
+    return unstack_leaves(param_spec_tree(cfg), cfg, _unstacked_spec)
+
+
+def _leaf_dtype(spec: ParamSpec, cfg: ModelConfig) -> torch.dtype:
+    if spec.init in ("ssm_a", "ssm_dt"):
+        return torch.float32
+    return torch_dtype(spec.dtype or cfg.dtype)
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Every weight as a meta tensor of its shape and dtype (no storage),
+    by state dict key."""
+    return {k: torch.empty(s.shape, dtype=_leaf_dtype(s, cfg),
+                           device="meta")
+            for k, s in layer_spec_tree(cfg).items()}
+
+
+def param_logical_axes(cfg: ModelConfig) -> Dict[str, Tuple[Any, ...]]:
+    return {k: s.logical for k, s in layer_spec_tree(cfg).items()}
+
+
+def param_shardings(cfg: ModelConfig
+                    ) -> Dict[str, Optional[pspec.NamedSharding]]:
+    """Each weight's ``NamedSharding`` under the active scope (None
+    outside a mesh)."""
+    return {k: pspec.named_sharding(s.logical, shape=s.shape)
+            for k, s in layer_spec_tree(cfg).items()}
 
 
 def count_params(cfg: ModelConfig) -> int:

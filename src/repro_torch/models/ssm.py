@@ -24,6 +24,7 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.models.layers import rms_norm
+from repro_torch.runtime import pspec as PS
 
 
 class SSMState(NamedTuple):
@@ -104,7 +105,8 @@ def mamba_block(params: Dict[str, torch.Tensor], x: torch.Tensor,
         xBC = F.silu(conv_out)[:, None, :].to(x.dtype)
 
     xs, Bm, Cm = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
-    xs = xs.reshape(B, S, nh, hd)
+    xs = PS.logical_constraint(xs.reshape(B, S, nh, hd),
+                               ("batch", None, "heads", None))
     Bm = Bm.reshape(B, S, G, N)
     Cm = Cm.reshape(B, S, G, N)
 

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import kvcache as KC
+from repro_torch.models import layers
 from repro_torch.models import params as P
 from repro_torch.models.layers import (apply_rope, attention,
                                        attention_projections, ffn, rms_norm,
@@ -82,13 +83,17 @@ def _attn_sublayer(cfg: ModelConfig, run: RunConfig, spec: P.SubLayerSpec,
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
         if use_seq_parallel(q, k):
-            raise NotImplementedError(
-                "sequence-parallel attention under a mesh (the reference's "
-                "seq_parallel_attention) waits for ROADMAP.md queue 1 item "
-                "11; use the '2d' rules, which split heads, not sequence")
-        out = attention(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
-                        window=window, impl=run.attn_impl,
-                        block_kv=run.attn_block_kv)
+            # context parallelism: the heads do not split over the model
+            # axis (looked up at call time, so a recorder can wrap it)
+            out = layers.seq_parallel_attention(
+                q, k, v, causal=True, window=window, impl=run.attn_impl,
+                block_kv=run.attn_block_kv)
+        else:
+            q = PS.logical_constraint(q, ("batch", None, "heads", None))
+            k = PS.logical_constraint(k, ("batch", None, "kv_heads", None))
+            out = attention(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
+                            window=window, impl=run.attn_impl,
+                            block_kv=run.attn_block_kv)
         if mode == "prefill":
             sz = cache["k"].shape[1]
             if S >= sz:
@@ -227,7 +232,7 @@ class DecoderLayer(nn.Module):
             x = x + y
         elif self.spec.has_ffn:
             x = x + _ffn_sublayer(self.cfg, self.ffn.params(), x)
-        return x, aux
+        return PS.logical_constraint(x, ("batch", None, None)), aux
 
 
 class Decoder(nn.Module):
@@ -271,8 +276,8 @@ class Decoder(nn.Module):
 
 def _in_scope(scope):
     """A checkpoint's ``context_fn``: its recompute, which autograd may run
-    on another thread, re-enters the forward's sharding scope (the
-    MoE's mesh branch reads it)."""
+    on another thread, re-enters the forward's sharding scope (the MoE's
+    mesh branch and sequence-parallel attention read it)."""
     return lambda: (contextlib.nullcontext(), PS.sharding_scope(*scope))
 
 

@@ -40,6 +40,20 @@ def adamw_init(params: Mapping[str, torch.Tensor]) -> OptState:
            for k, p in params.items()})
 
 
+def abstract_opt_state(abstract_params: Mapping[str, torch.Tensor]
+                       ) -> OptState:
+    """The optimizer state as meta tensors (the reference's dry-run
+    tree): f32 master, m and v of each parameter's shape, and the step
+    as an int32 scalar (the live state counts it in a Python int)."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return OptState(
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        master={k: f32(p) for k, p in abstract_params.items()},
+        m={k: f32(p) for k, p in abstract_params.items()},
+        v={k: f32(p) for k, p in abstract_params.items()})
+
+
 def decays(name: str, t: torch.Tensor) -> bool:
     """Whether the reference decays this leaf: ndim >= 2 of its stacked
     form (decoder layers gain the scan-group axis)."""

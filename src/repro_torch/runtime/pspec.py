@@ -10,10 +10,18 @@ The port's mesh is :class:`HostMesh`: one process's grid of torch devices
 one process. Code that splits over it loops over the mesh positions itself,
 in rank order; there is no process group. :func:`abstract_mesh` gives a
 shape-only mesh for resolving specs without devices.
+
+Placements are kept as a description. A :class:`HostMesh` in one process
+repeats its devices, so it places no tensor, and the reference's
+``with_sharding_constraint`` never changes a value: :func:`named_sharding`
+gives a :class:`NamedSharding` record (mesh and resolved spec, with the
+shard shape it implies) and :func:`logical_constraint` resolves its spec
+against the tensor and returns the tensor itself.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -52,9 +60,10 @@ RULE_SETS = {"2d": DEFAULT_RULES, "fsdp": FSDP_RULES, "dp": DP_RULES}
 
 def seq_attn_rules(base) -> Dict:
     """Context-parallel attention layout: attention weights replicate over
-    'model', activations shard the sequence over 'model' (the reference's
-    ``seq_parallel_attention``; the port's waits for ROADMAP.md queue 1
-    item 11)."""
+    'model' (q/k/v/o projections become pure-FSDP), and self-attention
+    splits the query sequence over 'model'
+    (``models.layers.seq_parallel_attention``, taken wherever
+    ``models.layers.use_seq_parallel`` holds)."""
     if isinstance(base, str):
         base = RULE_SETS[base]
     return dict(base, heads=None, kv_heads=None)
@@ -207,3 +216,57 @@ def resolve(logical: Sequence[Logical],
         else:
             out.append(tuple(parts))
     return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a resolved spec (one entry per dimension: None, a mesh
+    axis name, or a tuple of them): the counterpart of
+    ``jax.sharding.NamedSharding``, as a description only."""
+    mesh: AbstractMesh
+    spec: Tuple[Entry, ...]
+
+    def shard_shape(self, global_shape: Sequence[int]) -> Tuple[int, ...]:
+        """Each dimension divided by the product of the mesh axes its spec
+        entry names (dimensions past the spec are whole); a dimension they
+        do not divide raises, as ``jax.sharding.NamedSharding.shard_shape``
+        does."""
+        if len(self.spec) > len(global_shape):
+            raise ValueError(f"spec {self.spec} has more entries than shape "
+                             f"{tuple(global_shape)} has dimensions")
+        out = []
+        for i, dim in enumerate(global_shape):
+            entry = self.spec[i] if i < len(self.spec) else None
+            axes = () if entry is None else (
+                (entry,) if isinstance(entry, str) else entry)
+            n = 1
+            for a in axes:
+                n *= self.mesh.shape[a]
+            if dim % n:
+                raise ValueError(f"dimension {i} of {tuple(global_shape)} "
+                                 f"does not split over {axes} ({n})")
+            out.append(dim // n)
+        return tuple(out)
+
+
+def named_sharding(logical: Sequence[Logical],
+                   shape: Optional[Sequence[int]] = None
+                   ) -> Optional[NamedSharding]:
+    """The active mesh and ``resolve(logical, shape)``; None outside a
+    mesh, as in the reference."""
+    mesh = _SCOPE.mesh
+    if mesh is None:
+        return None
+    return NamedSharding(mesh, resolve(logical, shape=shape))
+
+
+def logical_constraint(x: torch.Tensor,
+                       logical: Sequence[Logical]) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` by logical names: under
+    a mesh the spec is resolved against ``x.shape`` (the same rules run);
+    ``x`` itself is returned, inside a mesh and outside one. The value is
+    unchanged, which is the reference's contract, and nothing is moved:
+    one process's mesh places no tensor."""
+    if _SCOPE.mesh is not None:
+        resolve(logical, shape=x.shape)
+    return x

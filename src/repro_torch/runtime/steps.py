@@ -1,19 +1,104 @@
-"""The train step: the reference's ``runtime/steps.py::
-make_train_step``, microbatch accumulation included. The sharding trees
-and the lowering of each cell wait for the port's mesh layer (ROADMAP.md,
-queue 1, last item).
+"""The step builders and the sharding trees of their arguments, as the
+reference's ``runtime/steps.py``: the train step (microbatch accumulation
+included), the prefill and serve steps, the batch and optimizer-state
+``NamedSharding`` trees resolved under the active ``sharding_scope``, and
+the per-cell choice of context-parallel attention. The reference's
+lowering of a cell through XLA (``lower_cell``) has no counterpart here.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
+from repro_torch.models import kvcache as KC
 from repro_torch.models import model as M
+from repro_torch.models import params as P
 from repro_torch.models.layers import check_attn_impl
 from repro_torch.optim.adamw import OptState, adamw_update
 from repro_torch.optim.schedule import lr_schedule
+from repro_torch.runtime import pspec
+
+
+# ----------------------------------------------------------- sharding trees
+def batch_shardings(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """A ``NamedSharding`` (None outside a mesh) for every leaf of
+    ``M.input_specs(cfg, shape)``: the batch dimension over 'batch', the
+    rest whole; the decode cache by :func:`KC.cache_logical_axes`, its
+    sequence split over 'data' for a batch of one."""
+    spec = M.input_specs(cfg, shape)
+    if shape.kind == "decode":
+        axes = KC.cache_logical_axes(cfg,
+                                     seq_shard=(shape.global_batch == 1))
+        return {
+            "token": pspec.named_sharding(("batch", None),
+                                          shape=(shape.global_batch, 1)),
+            "cache": [{k: pspec.named_sharding(ax[k], shape=c[k].shape)
+                       for k in c} for ax, c in zip(axes, spec["cache"])],
+            "cur": pspec.named_sharding(()),
+        }
+    return {k: pspec.named_sharding(("batch",) + (None,) * (t.dim() - 1),
+                                    shape=t.shape)
+            for k, t in spec.items()}
+
+
+def opt_shardings(cfg: ModelConfig, zero_pod: bool = True) -> OptState:
+    """Optimizer-state shardings: the parameters'. With ``zero_pod`` on a
+    mesh that has a 'pod' axis the f32 master, m and v also split over
+    'pod' (ZeRO-1 across pods: 'fsdp' resolves to 'pod' before its own
+    axes), while the parameters stay pod-replicated."""
+    mesh = pspec.active_mesh()
+    if zero_pod and mesh is not None and "pod" in mesh.axis_names:
+        rules = pspec.current_scope()[1]
+        fsdp = rules.get("fsdp")
+        fsdp = (fsdp,) if isinstance(fsdp, str) else tuple(fsdp or ())
+        with pspec.sharding_scope(mesh, dict(rules, fsdp=("pod",) + fsdp)):
+            ps = P.param_shardings(cfg)
+    else:
+        ps = P.param_shardings(cfg)
+    return OptState(step=pspec.named_sharding(()), master=ps, m=ps, v=ps)
+
+
+def choose_seq_attn(cfg: ModelConfig, shape: ShapeConfig,
+                    min_waste: float = 2.0) -> bool:
+    """Context-parallel attention for this cell under the active scope?
+    Yes when splitting heads would pad the KV heads ``min_waste`` times or
+    more on the model axis and the sequence splits evenly (train and
+    prefill only: decode attends a cache)."""
+    if shape.kind == "decode":
+        return False
+    n_model = pspec.logical_axis_size("heads")
+    if n_model <= 1 or cfg.n_kv_heads % n_model == 0:
+        return False
+    if shape.seq_len % n_model != 0:
+        return False
+    return (n_model / cfg.n_kv_heads) >= min_waste
+
+
+# ------------------------------------------------------------ step builders
+def make_prefill_step(cfg: ModelConfig, run: RunConfig,
+                      s_max: int) -> Callable:
+    """``prefill_step(model, batch) -> (last logits, cache)`` over a
+    prefill batch of :func:`M.input_specs`' layout."""
+    check_attn_impl(run.attn_impl)
+
+    def prefill_step(model: M.Transformer, batch: Mapping[str, Any]):
+        return M.prefill(model, run, batch["tokens"], s_max,
+                         frames=batch.get("frames"),
+                         patches=batch.get("patches"))
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, run: RunConfig) -> Callable:
+    """``serve_step(model, token, cache, cur) -> (logits, cache)``: one
+    decode step, the cache updated in place."""
+    check_attn_impl(run.attn_impl)
+
+    def serve_step(model: M.Transformer, token: torch.Tensor, cache,
+                   cur: int):
+        return M.decode_step(model, run, token, cache, cur)
+    return serve_step
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:

@@ -9,11 +9,13 @@ reference's own planner on the cases below, and writes what its kernels
 saw and returned to an ``.npz`` file. The alias lives and dies with that
 process: the test process never sees it.
 
-    python tests/_torch_ref.py OUT.npz grid|fused|planner|legs|split|moe_ep
+    python tests/_torch_ref.py OUT.npz grid|fused|planner|legs|split|moe_ep|
+        seq_attn|seq_models|layout
 
-The mesh cases (``split``, ``moe_ep``) run the reference's sharded paths on
-a forced host-device count (``run_reference(..., host_devices=n)``), set in
-``XLA_FLAGS`` before the child imports jax.
+The mesh cases (``split``, ``moe_ep``, ``seq_attn``, ``seq_models``,
+``layout``) run the reference's sharded paths on a forced host-device count
+(``run_reference(..., host_devices=n)``), set in ``XLA_FLAGS`` before the
+child imports jax.
 
 Cases are plain data, built into jobs by :func:`make_jobs` against either
 package's planner module, so both implementations plan identical inputs.
@@ -812,10 +814,235 @@ def _child_moe_ep(out: Dict[str, np.ndarray]) -> None:
             out[f"{name}/grad/{k}"] = np.asarray(g)
 
 
+# --- sequence-parallel attention and the sharded layout -------------------
+# (tests/test_torch_seq_attn.py, tests/test_torch_layout.py)
+SEQ_DEVICES = 4
+SEQ_B, SEQ_S, SEQ_NQ, SEQ_NKV, SEQ_H = 2, 32, 4, 2, 8
+SEQ_BLOCK_KV = 8                       # < every band: the blockwise path
+
+
+def seq_attn_cases() -> List[tuple]:
+    """(name, (data, model) mesh, rules, window, impl, block_kv) for every
+    mesh x rule set x {global, windowed with the band, windowed without
+    it} x {naive, blockwise}. A rank holds Sl = S / model queries; the
+    band needs Sl + window < S, so its window is S - Sl - 8 and the
+    bandless one S - Sl."""
+    out = []
+    for shape in ((1, 4), (2, 2)):
+        sl = SEQ_S // shape[1]
+        for rules in ("seq_2d", "fsdp"):
+            for kind, window in (("global", None), ("band", SEQ_S - sl - 8),
+                                 ("noband", SEQ_S - sl)):
+                for impl, bk in (("naive", 1024),
+                                 ("blockwise", SEQ_BLOCK_KV)):
+                    out.append((f"{shape[0]}x{shape[1]}_{rules}_{kind}_"
+                                f"{impl}", shape, rules, window, impl, bk))
+    return out
+
+
+def seq_attn_inputs(seed: int = 17) -> Dict[str, np.ndarray]:
+    """f32 q [B, S, nq, h], k and v [B, S, nkv, h] and a cotangent for the
+    output, drawn from a seed."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    return {"q": w(SEQ_B, SEQ_S, SEQ_NQ, SEQ_H),
+            "k": w(SEQ_B, SEQ_S, SEQ_NKV, SEQ_H),
+            "v": w(SEQ_B, SEQ_S, SEQ_NKV, SEQ_H),
+            "cot": w(SEQ_B, SEQ_S, SEQ_NQ, SEQ_H)}
+
+
+# (label, arch, layers, reference impl, block_kv): gemma3 with one local
+# (window 16: a band at Sl = 8) and one global layer on the blockwise path;
+# kimi-k2 with one MoE layer (4 experts, one a rank) on the naive one
+SEQ_MODELS = (("gemma", "gemma3-12b", 2, "blockwise", SEQ_BLOCK_KV),
+              ("kimi", "kimi-k2-1t-a32b", 1, "naive", 1024))
+SEQ_MODEL_TOKENS = (2, SEQ_S + 1)
+
+
+def seq_model_tokens(arch: str) -> np.ndarray:
+    return np.random.default_rng(sum(map(ord, arch))).integers(
+        0, 256, SEQ_MODEL_TOKENS).astype(np.int32)
+
+
+def nest(flat: Dict[str, object], prefix: str = "") -> dict:
+    """The entries of ``flat`` under ``prefix``, their keys' rest split at
+    "/", as a nested tree of dicts (a child's saved leaves back in the
+    reference's tree)."""
+    tree: dict = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix):
+            continue
+        node = tree
+        *head, last = key[len(prefix):].split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+def _seq_mesh(shape):
+    import jax
+    devs = np.array(jax.devices())
+    if devs.size != SEQ_DEVICES:
+        raise RuntimeError(f"{devs.size} devices, not {SEQ_DEVICES}")
+    return jax.sharding.Mesh(devs[:shape[0] * shape[1]].reshape(shape),
+                             ("data", "model"))
+
+
+def _seq_rules(pspec, name):
+    return pspec.seq_attn_rules("2d") if name == "seq_2d" else name
+
+
+def _child_seq_attn(out: Dict[str, np.ndarray]) -> None:
+    """Each seq_attn_cases case through the reference's
+    ``seq_parallel_attention`` (its ``shard_map`` over a ``(data,
+    model)`` mesh), jitted: the output and, by ``jax.grad``, the gradient
+    of sum(out * cot) for q, k and v."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.layers import seq_parallel_attention
+    from repro.runtime import pspec
+    arrs = {k: jnp.asarray(v) for k, v in seq_attn_inputs().items()}
+    cot = arrs.pop("cot")
+    for name, shape, rules, window, impl, bk in seq_attn_cases():
+        def loss(q, k, v):
+            o = seq_parallel_attention(q, k, v, causal=True, window=window,
+                                       impl=impl, block_kv=bk)
+            return jnp.sum(o * cot), o
+
+        with pspec.sharding_scope(_seq_mesh(shape), _seq_rules(pspec,
+                                                               rules)):
+            (_, o), g = jax.jit(jax.value_and_grad(
+                loss, argnums=(0, 1, 2), has_aux=True))(
+                arrs["q"], arrs["k"], arrs["v"])
+        out[f"{name}/out"] = np.asarray(o)
+        for key, gi in zip("qkv", g):
+            out[f"{name}/grad/{key}"] = np.asarray(gi)
+
+
+def _child_seq_models(out: Dict[str, np.ndarray]) -> None:
+    """Each SEQ_MODELS model (reduced, f32, weights from PRNGKey(0)) under
+    a 1 x 4 mesh and ``seq_attn_rules("2d")``: prefill's last logits, and
+    ``loss_fn`` with the gradient of every weight (remat per block), the
+    weights themselves beside them."""
+    import dataclasses as dc
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_reduced
+    from repro.configs.base import RunConfig
+    from repro.models import init_params, loss_fn, prefill
+    from repro.runtime import pspec
+    for label, arch, layers, impl, bk in SEQ_MODELS:
+        cfg = dc.replace(get_reduced(arch, layers=layers), dtype="float32")
+        params = init_params(jax.random.PRNGKey(0), cfg)
+        tok = jnp.asarray(seq_model_tokens(arch))
+        batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+        run_p = RunConfig(arch=arch, attn_impl=impl, attn_block_kv=bk,
+                          remat="none")
+        run_t = dc.replace(run_p, remat="block")
+        with pspec.sharding_scope(_seq_mesh((1, 4)),
+                                  pspec.seq_attn_rules("2d")):
+            logits, _ = jax.jit(lambda p, b: prefill(
+                p, cfg, run_p, b, s_max=SEQ_S + 4))(params, batch)
+            (loss, mets), grads = jax.jit(jax.value_and_grad(
+                lambda p: loss_fn(p, cfg, run_t, batch, xent_chunk=0),
+                has_aux=True))(params)
+        out[f"{label}/logits"] = np.asarray(logits)
+        out[f"{label}/loss"] = np.asarray(loss)
+        out[f"{label}/aux"] = np.asarray(mets["aux"])
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+            key = "/".join(p.key for p in path)
+            out[f"{label}/param/{key}"] = np.asarray(leaf)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(grads)[0]:
+            key = "/".join(p.key for p in path)
+            out[f"{label}/grad/{key}"] = np.asarray(leaf)
+
+
+LAYOUT_DEVICES = 512                   # launch/dryrun.py's forced count
+LAYOUT_MESHES = {"pod1": ((16, 16), ("data", "model")),
+                 "pod2": ((2, 16, 16), ("pod", "data", "model"))}
+LAYOUT_RULES = ("2d", "fsdp", "dp", "seq_2d")
+
+
+def _entry_json(e):
+    return list(e) if isinstance(e, tuple) else e
+
+
+def _child_layout(out: Dict[str, np.ndarray]) -> None:
+    """The reference's sharded layout on both production meshes (built with
+    ``jax.sharding.Mesh`` over the 512 forced devices) under each of
+    LAYOUT_RULES, for every arch at full size, as JSON: per leaf of the
+    params, the optimizer state (``zero_pod``), every shape's batch and
+    the decode cache (``seq_shard`` both ways, decode_32k's) the spec,
+    ``NamedSharding.shard_shape``, shape and dtype; and
+    ``choose_seq_attn`` for every cell of ``cells()``."""
+    import json
+    import jax
+    from repro.configs import ARCHS, SHAPES, cells, get_config
+    from repro.models import kvcache as KC
+    from repro.models import model as RM
+    from repro.models import params as RP
+    from repro.optim.adamw import abstract_opt_state
+    from repro.runtime import pspec, steps
+    devs = np.array(jax.devices())
+    if devs.size != LAYOUT_DEVICES:
+        raise RuntimeError(f"{devs.size} devices, not {LAYOUT_DEVICES}")
+
+    def leaves(shardings, abstract):
+        got = {}
+        flat, _ = jax.tree_util.tree_flatten_with_path(abstract)
+        shard = dict(jax.tree_util.tree_flatten_with_path(
+            shardings, is_leaf=lambda t: t is None)[0])
+        for path, a in flat:
+            sh = shard[path]
+            key = "/".join(str(getattr(p, "key", getattr(p, "name", p)))
+                           for p in path)
+            got[key] = [[_entry_json(e) for e in sh.spec],
+                        list(sh.shard_shape(a.shape)), list(a.shape),
+                        str(a.dtype)]
+        return got
+
+    res = {}
+    for mname, (sizes, names) in LAYOUT_MESHES.items():
+        mesh = jax.sharding.Mesh(devs[:int(np.prod(sizes))].reshape(sizes),
+                                 names)
+        for rules in LAYOUT_RULES:
+            with pspec.sharding_scope(mesh, _seq_rules(pspec, rules)):
+                res[f"{mname}|{rules}|choose"] = {
+                    f"{a}|{sh.name}": bool(steps.choose_seq_attn(
+                        get_config(a), sh)) for a, sh, _ in cells()}
+                for arch in ARCHS:
+                    cfg = get_config(arch)
+                    p_abs = RP.abstract_params(cfg)
+                    row = {"params": leaves(RP.param_shardings(cfg), p_abs),
+                           "opt": leaves(steps.opt_shardings(cfg),
+                                         abstract_opt_state(p_abs))}
+                    for sh in SHAPES:
+                        row[f"batch|{sh.name}"] = leaves(
+                            steps.batch_shardings(cfg, sh),
+                            RM.input_specs(cfg, sh))
+                    dec = SHAPES[2]
+                    enc = dec.seq_len // 4 if cfg.family == "encdec" else 0
+                    c_abs = KC.abstract_cache(cfg, dec.global_batch,
+                                              dec.seq_len, enc)
+                    for seq in (False, True):
+                        axes = KC.cache_logical_axes(cfg, seq_shard=seq)
+                        row[f"cache|{seq}"] = leaves(jax.tree.map(
+                            lambda ax, s: pspec.named_sharding(
+                                ax, shape=s.shape), axes, c_abs,
+                            is_leaf=lambda t: isinstance(t, tuple)), c_abs)
+                    res[f"{mname}|{rules}|{arch}"] = row
+    out["layout"] = np.array(json.dumps(res))
+
+
 if __name__ == "__main__":
     path, what = Path(sys.argv[1]), sys.argv[2]
     arrays: Dict[str, np.ndarray] = {}
     {"grid": _child_grid, "fused": _child_fused,
      "planner": _child_planner, "legs": _child_legs,
-     "split": _child_split, "moe_ep": _child_moe_ep}[what](arrays)
+     "split": _child_split, "moe_ep": _child_moe_ep,
+     "seq_attn": _child_seq_attn, "seq_models": _child_seq_models,
+     "layout": _child_layout}[what](arrays)
     np.savez(path, **arrays)

@@ -127,7 +127,7 @@ def test_make_host_mesh(monkeypatch):
         make_host_mesh(3)
 
 
-# --- sequence-parallel attention: refused, never quietly unsplit ------------
+# --- sequence-parallel attention: taken where the predicate holds -----------
 
 def _qk(T, S):
     return torch.zeros(1, T, 2, 4), torch.zeros(1, S, 2, 4)
@@ -166,12 +166,26 @@ def small_dense():
 
 @pytest.mark.parametrize("rules", ["seq_2d", "fsdp"])
 def test_seq_parallel_attention_raises_naming_item_11(small_dense, rules):
+    """Item 11 ported it: where the predicate holds, prefill no longer
+    raises but runs sequence-parallel attention, and its logits are the
+    unmeshed ones to f32 noise (held against the reference's in
+    tests/test_torch_seq_attn.py)."""
     model, tokens = small_dense
     run = RunConfig(arch="g", attn_impl="naive", remat="none")
-    with PS.sharding_scope(PS.HostMesh([["cpu", "cpu"]], ("data", "model")),
-                           _rules(PS, rules)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            M.prefill(model, run, tokens, 20)
+    want, _ = M.prefill(model, run, tokens, 20)
+    calls = []
+    real = layers.seq_parallel_attention
+    layers.seq_parallel_attention = lambda *a, **k: (
+        calls.append(1), real(*a, **k))[1]
+    try:
+        with PS.sharding_scope(PS.HostMesh([["cpu", "cpu"]],
+                                           ("data", "model")),
+                               _rules(PS, rules)):
+            got, _ = M.prefill(model, run, tokens, 20)
+    finally:
+        layers.seq_parallel_attention = real
+    assert len(calls) == len(model.decoder.layers)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-2
 
 
 def test_dense_model_under_2d_mesh_is_unchanged(small_dense):

@@ -329,8 +329,9 @@ def _cpu_phase(cpu_smoke, monkeypatch):
     stub, and a launch counter on the flash wrapper (the kernels' plain
     versions run on CPU tensors and count nothing)."""
     from repro_torch.kernels import flash_attention as fa
-    for name in ("synchronize", "empty_cache"):
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
     monkeypatch.setattr(cpu_smoke, "device_events", lambda fn: (
         fn(), {"device_events": 0, "device_ms": 0.0})[1])
     real = fa.flash_attention
