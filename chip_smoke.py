@@ -21,7 +21,7 @@ and drives the port's paths:
   axis split over three copies of the card (three shards, which do not
   divide the 64-cell bucket): tables within 1e-9 of unsplit, the same
   plans, the numpy oracle's cells, and ``shard=MeshConfig(n_devices=2)``
-  resolving to the one card with the unsplit run's device events;
+  resolving to the one card with the unsplit run's launches by name;
 * the fleet control plane's closed loop: ``examples/fleet_day.py``'s first
   act (4000 jobs over 24 simulated hours, a 4-shard ``ShardedFleet``, a 6x
   forecast shock at 11:00 for six hours) on the default fused backend,
@@ -111,7 +111,14 @@ and drives the port's paths:
   step under a 1 x 2 mesh (8 experts a rank) and one under a 1 x 4 mesh
   with ``seq_attn_rules("2d")`` (4 experts a rank, attention
   sequence-parallel forward and backward, the routing replayed), each
-  held to the unmeshed step.
+  held to the unmeshed step;
+* the roofline (phase 20): gemma3-12b's served 4 x 2048 prefill and
+  mamba2-370m's 8 x 2048 train step on the blockwise path, each traced on
+  meta tensors through ``steps.lower_cell`` and
+  ``cost_analysis.analyze_cell`` on a one-device mesh and run on the card
+  under ``FlopCounterMode``: the two dot-FLOP counts equal, the CUDA-event
+  ms at least the H100 roofline's compute term, the terms printed with
+  the card's name and power limit.
 
 Every phase that fails raises, so the exit code is non-zero; without a
 CUDA device the script exits 2 and prints no result. Each phase prints its
@@ -120,6 +127,7 @@ seconds. The last line of stdout is one JSON object
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -143,14 +151,14 @@ N_SAMPLED = 32                 # oracle spot check, as planner_scale samples
 N_TIMED = 25                   # CUDA-event timings per kernel (median)
 DT_S, SLOT_S, STRIDE = 60.0, 3600.0, 60
 
-# H100 SXM peaks: HBM bytes/s, f32 and f64 non-tensor FLOP/s, bf16 dense
-# tensor-core FLOP/s (NVIDIA's data sheet)
-HBM_BPS = 3.35e12
-F32_FLOPS = 67e12
-F64_FLOPS = 34e12
-BF16_TC_FLOPS = 989e12
-
 REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO / "src"))
+# H100 SXM peaks (NVIDIA's data sheet), defined once in the port: HBM
+# bytes/s, f32 and f64 non-tensor FLOP/s, bf16 dense tensor-core FLOP/s
+from repro_torch.cluster.topology import (  # noqa: E402
+    H100_BF16_FLOPS as BF16_TC_FLOPS, H100_F32_FLOPS as F32_FLOPS,
+    H100_F64_FLOPS as F64_FLOPS, H100_HBM_BPS as HBM_BPS)
+
 KERNEL_SRC = "src/repro_torch/csrc/planner_kernels.cu"
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
 SSD_SRC = "src/repro_torch/csrc/ssd_scan.cu"
@@ -661,7 +669,12 @@ def busy_ms(prof) -> float:
 
 def device_events(fn) -> dict:
     """``fn()`` once under ``torch.profiler``: its device events (kernels,
-    copies, sets), their device ms and the wall ms."""
+    copies, sets), their device ms and the wall ms, and its launches: the
+    host's runtime calls that start device work (``cudaLaunchKernel``,
+    ``cudaMemcpyAsync``, ``cudaMemsetAsync``, ...) by name. The profiler
+    records those as the host makes them; a device event comes from an
+    asynchronous activity buffer, and phase 4c once saw one fewer than the
+    same call launched (``scripts/cell_split_events.py``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -673,7 +686,12 @@ def device_events(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    launches = collections.Counter(
+        e.name for e in prof.events() if e.device_type == DeviceType.CPU
+        and e.name.startswith("cu")
+        and any(w in e.name for w in ("Launch", "Memcpy", "Memset")))
     return {"device_events": len(dev), "device_ms": ms,
+            "launches": dict(sorted(launches.items())),
             "profiled_wall_ms": wall_ms,
             "busy_share": busy_ms(prof) / wall_ms}
 
@@ -2968,8 +2986,8 @@ def cell_split(tp, gt, ftns, job) -> dict:
     once (device events and ms). Gates: split tables within SPLIT_TOL_REL
     of unsplit (bit-equal cells counted) and the same plans, 32 sampled
     plans as the numpy oracle's (cells equal, emissions 1e-4), and the
-    MeshConfig run on one device with the unsplit run's device events and
-    tables bit for bit."""
+    MeshConfig run on one device with the unsplit run's launches by call
+    name (``device_events``) and tables bit for bit."""
     planner = tp.TorchCarbonPlanner(ftns, device=DEVICE,
                                     batch_backend="torch")
     jobs = [job(i) for i in range(WINDOW)]
@@ -3042,8 +3060,8 @@ def cell_split(tp, gt, ftns, job) -> dict:
             == torch.cuda.device_count() == 1
             and res["mesh_config_tables"]["bit_equal_cells"] == n
             and res["mesh_config_vs_unsplit_plans"]["cell_mismatches"] == 0
-            and timing["mesh_config"]["device_events"]
-            == timing["unsplit"]["device_events"]):
+            and timing["mesh_config"].get("launches")
+            == timing["unsplit"].get("launches")):
         raise RuntimeError(f"the cell split disagrees: {res}")
     return res
 
@@ -3538,11 +3556,110 @@ def seq_prefill(M, model, run, tokens, logits, flash, card: str) -> tuple:
     return res, rows["unmeshed"]["flash_launches"]
 
 
+# phase 20: the roofline of the two unmeshed cells the card already runs,
+# traced on meta tensors (steps.lower_cell + cost_analysis.analyze_cell on
+# a one-device mesh) and run on the card, on the blockwise path the trace
+# takes (the reference's dry run lowers its jnp paths, not its kernels)
+ROOFLINE_CELLS = (("gemma3-12b", "prefill", SERVE_BATCH, PROMPT_LEN),
+                  (TRAIN_ARCH, "train", TRAIN_BATCH, TRAIN_SEQ))
+ROOFLINE_TIMED = 3             # CUDA-event timings of each step (median)
+
+
+def roofline_cell(arch: str, kind: str, batch: int, seq: int,
+                  card: str) -> dict:
+    """One cell of phase 20: its step traced on meta tensors (dot FLOPs,
+    HBM bytes, the H100 roofline), then built at full size with random
+    weights from SEED and run on the card, once under ``FlopCounterMode``
+    and ROOFLINE_TIMED times between CUDA events. Raises unless the
+    card's count equals the trace's and the measured ms are at least the
+    roofline's compute term."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime import pspec as PS
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.cost_analysis import analyze_cell
+    from repro_torch.runtime.roofline import PEAK_FLOPS, roofline_report
+    cfg = get_config(arch)
+    run = RunConfig(arch=arch, attn_impl="blockwise", seed=SEED)
+    shape = ShapeConfig(f"{kind}_{seq}", seq_len=seq, global_batch=batch,
+                        kind=kind)
+    t0 = time.perf_counter()
+    with PS.sharding_scope(PS.abstract_mesh((1, 1), ("data", "model")),
+                           run.sharding):
+        low, _ = steps.lower_cell(cfg, run, shape)
+    hlo = analyze_cell(low)
+    trace_s = time.perf_counter() - t0
+    roof = roofline_report({"hlo": hlo, "chips": 1}, cfg, shape)
+
+    model = M.build_model(cfg, seed=SEED, device=DEVICE)
+    data = {k: v.to(DEVICE) for k, v in M.make_batch(
+        cfg, shape, torch.Generator().manual_seed(SEED)).items()}
+    if kind == "train":
+        model.requires_grad_(True)
+        opt = adamw_init(dict(model.named_parameters()))
+        step = steps.make_train_step(cfg, run)
+
+        def call():
+            return step(model, opt, data)
+    else:
+        step = steps.make_prefill_step(cfg, run, s_max=seq)
+
+        def call():
+            return step(model, data)
+    call()
+    torch.cuda.synchronize()
+    with FlopCounterMode(display=False) as fc:
+        call()
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    times = []
+    for _ in range(ROOFLINE_TIMED):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        call()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    ms = statistics.median(times)
+    del model, data, step
+    torch.cuda.empty_cache()
+    res = {"arch": arch, "kind": kind, "batch": batch, "seq": seq,
+           "attn_impl": run.attn_impl, "trace_s": trace_s,
+           "dot_flops_per_chip": hlo["dot_flops_per_chip"],
+           "card_flops": card_flops,
+           "mem_bytes_per_chip": hlo["mem_bytes_per_chip"],
+           "t_compute_ms": 1e3 * roof["t_compute_s"],
+           "t_memory_ms": 1e3 * roof["t_memory_s"],
+           "bound": roof["bound"], "measured_ms": ms, "timed_ms": times,
+           "roofline_fraction": roof["roofline_fraction"],
+           "measured_model_flops_share": (
+               roof["model_flops_global"] / (ms / 1e3) / PEAK_FLOPS),
+           "useful_flops_ratio": roof["useful_flops_ratio"], "card": card}
+    emit({"roofline_cell": res})
+    if card_flops != hlo["dot_flops_per_chip"]:
+        raise RuntimeError(f"{arch} {kind}: the card ran {card_flops} dot "
+                           f"FLOPs, the meta trace counts "
+                           f"{hlo['dot_flops_per_chip']}")
+    if not ms >= res["t_compute_ms"]:
+        raise RuntimeError(f"{arch} {kind}: {ms} ms measured, under the "
+                           f"roofline's compute term {res['t_compute_ms']}")
+    return res
+
+
+def roofline_phase(card: str) -> list:
+    """Phase 20: :func:`roofline_cell` for each of ROOFLINE_CELLS."""
+    torch.cuda.empty_cache()
+    return [roofline_cell(*c, card) for c in ROOFLINE_CELLS]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO / "src"))
     from repro_torch.core.scheduler import grid_cuda
     from repro_torch.core.scheduler import grid_torch as gt
     from repro_torch.core.scheduler import planner as tp
@@ -3820,7 +3937,12 @@ def main() -> int:
     moe_training(fa, ssd, ops, tl, M, adamw, built, power_limit_w(card),
                  clock, flash_cases, flash_paths, ssd_cases, ssd_paths)
 
-    # 20. results
+    # 20. the roofline: gemma3-12b's served prefill and mamba2-370m's train
+    # step traced on meta tensors and run on the card, their dot FLOPs equal
+    roofline_phase(gpu_line())
+    clock.mark("20 roofline")
+
+    # results
     worst = max(flash_cases, key=lambda c: c["rel_rms_err"])
     kernels.append(
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,

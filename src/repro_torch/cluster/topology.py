@@ -15,15 +15,32 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from repro_torch.core.scheduler.overlay import FTN
 
 
+# One NVIDIA H100 SXM5 80GB, from NVIDIA's H100 Tensor Core GPU data
+# sheet: dense (not sparse) bf16 tensor-core FLOP/s, f32 and f64
+# non-tensor FLOP/s, HBM3 bytes/s, and NVLink 4's 900 GB/s per GPU counted
+# one way (450e9 B/s). The roofline's collective term divides each device's
+# wire bytes by that one-way figure: a ring over NVSwitch sends on every
+# link of a GPU at once while it receives on them, so a device's sends
+# share 450 GB/s, as a TPU's go over its ICI links.
+H100_BF16_FLOPS = 989e12
+H100_F32_FLOPS = 67e12
+H100_F64_FLOPS = 34e12
+H100_HBM_BPS = 3.35e12
+H100_NVLINK_BPS = 450e9
+
+
 @dataclasses.dataclass(frozen=True)
 class Pod:
     name: str
     site: str
     n_chips: int = 256
     mesh_shape: Tuple[int, int] = (16, 16)
-    # one NVIDIA H100 SXM (data sheet): dense bf16 tensor-core peak and HBM
-    chip_peak_flops: float = 989e12
+    # one NVIDIA H100 SXM (see above): dense bf16 tensor-core peak, HBM
+    # size and bandwidth, NVLink one way
+    chip_peak_flops: float = H100_BF16_FLOPS
     chip_hbm_gb: float = 80.0
+    chip_hbm_bps: float = H100_HBM_BPS
+    chip_link_bps: float = H100_NVLINK_BPS
 
 
 @dataclasses.dataclass(frozen=True)

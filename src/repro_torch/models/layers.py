@@ -178,16 +178,17 @@ def shard_map(f: Callable[..., torch.Tensor], *, mesh: PS.HostMesh,
     ``out_specs`` does not name the outputs are replicas and the first is
     kept, as the reference's ``check_vma=False`` takes one. There are no
     collectives: ``f`` sees only its own slices. Autograd runs through
-    the slices, moves and joins."""
+    the slices, moves and joins.
+
+    Under a shape-only mesh, inside a cell's cost trace and only there,
+    the mapped function runs one coordinate's body on meta slices and
+    returns a meta output of the joined shape
+    (``runtime.cost_analysis.one_coordinate``)."""
     if not isinstance(mesh, PS.HostMesh):
-        raise TypeError(f"shard_map needs a HostMesh, not "
-                        f"{type(mesh).__name__}: a shape-only mesh places "
-                        f"nothing")
+        return _one_coordinate_map(f, mesh, in_specs, out_specs)
 
     def mapped(*args: torch.Tensor) -> torch.Tensor:
-        if len(args) != len(in_specs):
-            raise ValueError(f"{len(args)} arguments for {len(in_specs)} "
-                             f"in_specs")
+        _check_splits(args, in_specs, mesh)
         blocks: Dict[Tuple[int, ...], torch.Tensor] = {}
         shapes = set()
         for pos in np.ndindex(*mesh.devices.shape):
@@ -196,10 +197,6 @@ def shard_map(f: Callable[..., torch.Tensor], *, mesh: PS.HostMesh,
             for a, spec in zip(args, in_specs):
                 for d, entry in enumerate(spec):
                     i, n = _block(entry, coord, mesh)
-                    if a.shape[d] % n:
-                        raise ValueError(f"dimension {d} of {tuple(a.shape)}"
-                                         f" does not split over "
-                                         f"{_axes(entry)}")
                     size = a.shape[d] // n
                     a = a.narrow(d, i * size, size)
                 local.append(a.to(mesh.devices[pos]))
@@ -214,6 +211,39 @@ def shard_map(f: Callable[..., torch.Tensor], *, mesh: PS.HostMesh,
         counts = [_block(e, dict.fromkeys(mesh.axis_names, 0), mesh)[1]
                   for e in out_specs]
         return _join(blocks, counts)
+
+    return mapped
+
+
+def _check_splits(args: Sequence[torch.Tensor], in_specs: Sequence[Tuple],
+                  mesh) -> None:
+    """Raises unless there is one spec an argument and each spec's mesh
+    axes divide the dimension they split."""
+    if len(args) != len(in_specs):
+        raise ValueError(f"{len(args)} arguments for {len(in_specs)} "
+                         f"in_specs")
+    origin = dict.fromkeys(mesh.axis_names, 0)
+    for a, spec in zip(args, in_specs):
+        for d, entry in enumerate(spec):
+            if a.shape[d] % _block(entry, origin, mesh)[1]:
+                raise ValueError(f"dimension {d} of {tuple(a.shape)} does "
+                                 f"not split over {_axes(entry)}")
+
+
+def _one_coordinate_map(f: Callable[..., torch.Tensor], mesh,
+                        in_specs: Sequence[Tuple], out_specs: Tuple
+                        ) -> Callable:
+    from repro_torch.runtime import cost_analysis as CA
+    if CA.active() is None:
+        raise TypeError(f"shard_map needs a HostMesh, not "
+                        f"{type(mesh).__name__}: a shape-only mesh places "
+                        f"nothing (outside a cell's cost trace)")
+
+    def mapped(*args: torch.Tensor) -> torch.Tensor:
+        _check_splits(args, in_specs, mesh)
+        return CA.one_coordinate(
+            lambda coord, *local: (f(coord, *local),), CA.corners(mesh),
+            args, in_specs, (out_specs,))[0]
 
     return mapped
 

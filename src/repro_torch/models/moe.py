@@ -14,8 +14,10 @@ Under an active mesh (``runtime.pspec.sharding_scope`` with a
 (its ``shard_map`` over the mesh) as explicit loops over the mesh's
 positions in rank order: tokens split over the batch axes, each shard
 dispatched at its own capacity, each model rank running its own slice of
-the experts. Each step here is a module-level function that
-:func:`moe_ffn` and the branch look up when they run.
+the experts; under a shape-only mesh, as one coordinate's body (a
+cell's cost trace, ``runtime.cost_analysis``). Each step here is a
+module-level function that :func:`moe_ffn` and the branch look up when
+they run.
 """
 from __future__ import annotations
 
@@ -184,11 +186,12 @@ def expert_parallel(p: Dict[str, torch.Tensor], xt: torch.Tensor,
     FSDP gather is the identity here); its f32 combine is cast to xt's
     dtype before the sum over ranks, which runs in rank order on the
     shard's rank-0 device. aux is the mean of the shards' aux. The
-    shards' outputs join in shard order on xt's device."""
-    if not isinstance(mesh, PS.HostMesh):
-        raise TypeError(f"the expert-parallel MoE needs a HostMesh, not "
-                        f"{type(mesh).__name__}: a shape-only mesh places "
-                        f"nothing")
+    shards' outputs join in shard order on xt's device.
+
+    Under a shape-only mesh, inside a cell's cost trace and only there,
+    one coordinate's body runs instead (:func:`_one_coordinate`): what one
+    device of the reference's ``shard_map`` runs, its routing
+    included."""
     batch_axes = PS.resolve(("batch", None), shape=xt.shape)[0]
     model_axis = PS.resolve(("expert", "fsdp", None))[0]
     b_axes = (() if batch_axes is None else
@@ -203,6 +206,9 @@ def expert_parallel(p: Dict[str, torch.Tensor], xt: torch.Tensor,
     T, k = xt.shape[0], cfg.top_k
     t_loc = T // n_batch
     names = ("wg", "wu", "wd") if gated else ("wu", "wd")
+    if not isinstance(mesh, PS.HostMesh):
+        return _one_coordinate(p, xt, cfg, gated, mesh, batch_axes,
+                               model_axis, names)
 
     def device(b: int, r: int) -> torch.device:
         coord = dict(zip(b_axes, np.unravel_index(b, b_sizes)))
@@ -221,19 +227,81 @@ def expert_parallel(p: Dict[str, torch.Tensor], xt: torch.Tensor,
         y_b = None
         for r in range(n_model):
             dev, off = device(b, r), r * e_loc
-            e_r, slot_r, keep_r, p_r, x_r = (
-                t.to(dev) for t in (e_flat, slot, keep, top_p, x_b))
-            keep_r = keep_r & (e_r >= off) & (e_r < off + e_loc)
-            e_r = torch.clamp(e_r - off, 0, e_loc - 1)
-            buf = scatter(x_r, e_r, slot_r, keep_r, e_loc, cap, k)
-            out_buf = experts({n: p[n][off:off + e_loc].to(dev)
-                               for n in names}, buf, gated)
-            part = combine(out_buf, e_r, slot_r, p_r, keep_r, k) \
-                .to(xt.dtype).to(dev0)
+            part = _rank_part(
+                *(t.to(dev) for t in (x_b, top_p, e_flat, slot, keep)),
+                {n: p[n][off:off + e_loc].to(dev) for n in names}, off,
+                cap, k, gated).to(xt.dtype).to(dev0)
             y_b = part if y_b is None else y_b + part
         ys.append(y_b.to(xt.device))
         auxes.append(aux.to(xt.device))
     return torch.cat(ys), torch.stack(auxes).mean()
+
+
+def _rank_part(x: torch.Tensor, top_p: torch.Tensor, e_flat: torch.Tensor,
+               slot: torch.Tensor, keep: torch.Tensor,
+               w: Dict[str, torch.Tensor], off: int, cap: int, k: int,
+               gated: bool) -> torch.Tensor:
+    """One model rank's share of a token shard's routed output, f32: the
+    assignments to its experts [off, off + E_loc) (``w`` holds their
+    weights) scattered, run and combined."""
+    e_loc = next(iter(w.values())).shape[0]
+    keep = keep & (e_flat >= off) & (e_flat < off + e_loc)
+    e_r = torch.clamp(e_flat - off, 0, e_loc - 1)
+    buf = scatter(x, e_r, slot, keep, e_loc, cap, k)
+    return combine(experts(w, buf, gated), e_r, slot, top_p, keep, k)
+
+
+def _one_coordinate(p: Dict[str, torch.Tensor], xt: torch.Tensor,
+                    cfg: MoEConfig, gated: bool, mesh: PS.AbstractMesh,
+                    batch_axes, model_axis, names
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`expert_parallel` under a shape-only mesh: one coordinate
+    routes its token shard, dispatches it at its own capacity and runs its
+    rank's experts; the sum over the model ranks and the mean of aux over
+    the token shards are the reference's psum and pmean, counted as
+    all-reduces."""
+    from repro_torch.runtime import cost_analysis as CA
+    if CA.active() is None:
+        raise TypeError(f"the expert-parallel MoE needs a HostMesh, not "
+                        f"{type(mesh).__name__}: a shape-only mesh places "
+                        f"nothing (outside a cell's cost trace)")
+    spec_x = (batch_axes, None)
+    n_batch = PS.axis_size(batch_axes)
+    n_model = mesh.shape[model_axis] if model_axis else 1
+    w_spec = (model_axis, None, None)
+
+    def body(coord, x_b, router, *w):
+        top_p, top_i, aux = route(router, x_b, cfg)
+        cap = capacity(x_b.shape[0], cfg)
+        e_flat, slot, keep = dispatch_indices(top_i, cfg.n_experts, cap)
+        off = coord[model_axis] * w[0].shape[0] if model_axis else 0
+        y = _rank_part(x_b, top_p, e_flat, slot, keep, dict(zip(names, w)),
+                       off, cap, cfg.top_k, gated).to(x_b.dtype)
+        CA.record_collective("all-reduce", y.numel() * y.element_size(),
+                             n_model)
+        CA.record_collective("all-reduce", aux.element_size(), n_batch)
+        return y, aux
+
+    return CA.one_coordinate(
+        body, CA.corners(mesh), [xt, p["router"]] + [p[n] for n in names],
+        [spec_x, (None, None)] + [w_spec] * len(names), [spec_x, ()])
+
+
+def _branch_counted(p: Dict[str, torch.Tensor], prefix: str,
+                    xt: torch.Tensor, gated: bool) -> torch.Tensor:
+    """An always-on branch under a shape-only mesh, counted at the layout
+    of the expert-parallel output it is added to: tokens over the batch
+    axes, its 'ffn' dimension over the axes the rules give it."""
+    from repro_torch.runtime import cost_analysis as CA
+    names = [f"{prefix}_{n}" for n in (("wg", "wu", "wd") if gated
+                                       else ("wu", "wd"))]
+    w = p[names[0]]
+    split = (PS.axis_size(PS.resolve(("batch", None), shape=xt.shape)[0])
+             * PS.axis_size(PS.resolve((None, "ffn"), shape=w.shape)[1]))
+    return CA.counted_at(
+        split, lambda x, *ws: (_branch(dict(zip(names, ws)), prefix, x,
+                                       gated),),
+        xt, *(p[n] for n in names))[0]
 
 
 def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig, *,
@@ -259,8 +327,10 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig, *,
                                         ("expert", "capacity", None))
         y = combine(out_buf, e_flat, slot, top_p, keep,
                     cfg.top_k).to(x.dtype)
+    branch = (_branch if mesh is None or isinstance(mesh, PS.HostMesh)
+              else _branch_counted)
     if cfg.n_shared_experts:
-        y = y + _branch(p, "shared", xt, gated)
+        y = y + branch(p, "shared", xt, gated)
     if cfg.dense_residual:
-        y = y + _branch(p, "dense", xt, gated)
+        y = y + branch(p, "dense", xt, gated)
     return y.reshape(B, S, d), aux

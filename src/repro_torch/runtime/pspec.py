@@ -266,7 +266,12 @@ def logical_constraint(x: torch.Tensor,
     a mesh the spec is resolved against ``x.shape`` (the same rules run);
     ``x`` itself is returned, inside a mesh and outside one. The value is
     unchanged, which is the reference's contract, and nothing is moved:
-    one process's mesh places no tensor."""
-    if _SCOPE.mesh is not None:
-        resolve(logical, shape=x.shape)
+    one process's mesh places no tensor. Under a shape-only mesh a cell's
+    cost trace (``runtime.cost_analysis``) counts the resharding."""
+    mesh = _SCOPE.mesh
+    if mesh is not None:
+        spec = resolve(logical, shape=x.shape)
+        if not isinstance(mesh, HostMesh):
+            from repro_torch.runtime import cost_analysis
+            cost_analysis.constrain(x, spec)
     return x

@@ -2,12 +2,15 @@
 reference's ``runtime/steps.py``: the train step (microbatch accumulation
 included), the prefill and serve steps, the batch and optimizer-state
 ``NamedSharding`` trees resolved under the active ``sharding_scope``, and
-the per-cell choice of context-parallel attention. The reference's
-lowering of a cell through XLA (``lower_cell``) has no counterpart here.
+the per-cell choice of context-parallel attention, and ``lower_cell``:
+a cell's step with its meta arguments and shardings, ready for
+``runtime.cost_analysis.analyze_cell`` to trace where the reference
+lowers it through XLA.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping
+import dataclasses
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 
@@ -16,7 +19,8 @@ from repro_torch.models import kvcache as KC
 from repro_torch.models import model as M
 from repro_torch.models import params as P
 from repro_torch.models.layers import check_attn_impl
-from repro_torch.optim.adamw import OptState, adamw_update
+from repro_torch.optim.adamw import (OptState, abstract_opt_state,
+                                    adamw_update)
 from repro_torch.optim.schedule import lr_schedule
 from repro_torch.runtime import pspec
 
@@ -154,3 +158,87 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
         return {"loss": loss, "lr": lr, **metrics, **om}
 
     return train_step
+
+
+# --------------------------------------------------------------- lowering --
+@dataclasses.dataclass
+class LoweredCell:
+    """A cell's step and its meta arguments under the scope it was lowered
+    in: the port's counterpart of the reference's ``jax.stages.Lowered``.
+    ``args`` follow the model (``abstract_params``, by state dict key):
+    train ``(opt, batch)`` with ``abstract_opt_state``'s step a Python int
+    (``lr_schedule`` reads it as a number), prefill ``(batch,)``, decode
+    ``(token, cache, cur)`` with a full cache, ``cur = S - 1``. ``donate``
+    is recorded as the reference's argument: torch steps update their
+    arguments in place, so it changes nothing here."""
+    kind: str
+    cfg: ModelConfig
+    run: RunConfig
+    shape: ShapeConfig
+    step: Callable
+    params: Dict[str, torch.Tensor]
+    args: Tuple[Any, ...]
+    param_shardings: Dict[str, Any]
+    batch_shardings: Dict[str, Any]
+    opt_shardings: Optional[OptState]
+    mesh: Optional[pspec.AbstractMesh]
+    rules: Dict
+    donate: bool
+
+    def instantiate(self) -> Tuple[M.Transformer, Tuple[Any, ...]]:
+        """The model over the meta parameters (taking gradients for a
+        train step) and the step's other arguments."""
+        model = M.Transformer(self.cfg, self.params)
+        if self.kind == "train":
+            model.requires_grad_(True)
+        return model, self.args
+
+    def input_layouts(self) -> Iterator[Tuple[torch.Tensor, Any]]:
+        """(meta input, its ``NamedSharding``) for every tensor input."""
+        if self.kind == "decode":
+            token, cache, _ = self.args
+            yield token, self.batch_shardings["token"]
+            for c, sh in zip(cache, self.batch_shardings["cache"]):
+                for k in c:
+                    yield c[k], sh[k]
+            return
+        for k, t in self.args[-1].items():
+            yield t, self.batch_shardings[k]
+
+
+def lower_cell(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
+               donate: bool = True) -> Tuple[LoweredCell, str]:
+    """The step of one (arch x shape) cell under the active sharding
+    scope, switched to ``seq_attn_rules`` when :func:`choose_seq_attn`
+    holds, as the reference's. Returns (lowered, kind)."""
+    if choose_seq_attn(cfg, shape):
+        mesh, rules = pspec.current_scope()
+        with pspec.sharding_scope(mesh, pspec.seq_attn_rules(rules)):
+            return _lower_cell_inner(cfg, run, shape, donate)
+    return _lower_cell_inner(cfg, run, shape, donate)
+
+
+def _lower_cell_inner(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
+                      donate: bool = True) -> Tuple[LoweredCell, str]:
+    mesh, rules = pspec.current_scope()
+    p_abs = P.abstract_params(cfg)
+    b_abs = M.input_specs(cfg, shape)
+    cell = dict(cfg=cfg, run=run, shape=shape, params=p_abs,
+                param_shardings=P.param_shardings(cfg),
+                batch_shardings=batch_shardings(cfg, shape),
+                opt_shardings=None, mesh=mesh, rules=rules, donate=donate)
+    if shape.kind == "train":
+        opt = abstract_opt_state(p_abs)
+        opt.step = 0
+        return LoweredCell(kind="train", step=make_train_step(cfg, run),
+                           args=(opt, b_abs),
+                           **dict(cell, opt_shardings=opt_shardings(cfg))
+                           ), "train"
+    if shape.kind == "prefill":
+        return LoweredCell(kind="prefill",
+                           step=make_prefill_step(cfg, run,
+                                                  s_max=shape.seq_len),
+                           args=(b_abs,), **cell), "prefill"
+    return LoweredCell(kind="decode", step=make_serve_step(cfg, run),
+                       args=(b_abs["token"], b_abs["cache"],
+                             shape.seq_len - 1), **cell), "decode"

@@ -10,10 +10,10 @@ saw and returned to an ``.npz`` file. The alias lives and dies with that
 process: the test process never sees it.
 
     python tests/_torch_ref.py OUT.npz grid|fused|planner|legs|split|moe_ep|
-        seq_attn|seq_models|layout
+        seq_attn|seq_models|layout|cost
 
 The mesh cases (``split``, ``moe_ep``, ``seq_attn``, ``seq_models``,
-``layout``) run the reference's sharded paths on a forced host-device count
+``layout``, ``cost``) run the reference's sharded paths on a forced host-device count
 (``run_reference(..., host_devices=n)``), set in ``XLA_FLAGS`` before the
 child imports jax.
 
@@ -966,6 +966,53 @@ LAYOUT_MESHES = {"pod1": ((16, 16), ("data", "model")),
 LAYOUT_RULES = ("2d", "fsdp", "dp", "seq_2d")
 
 
+COST_DEVICES = 8
+COST_ARCHS = ("smollm-135m", "kimi-k2-1t-a32b", "mamba2-370m")
+COST_CASES = tuple((kind, mesh) for kind, meshes in (
+    ("train", ((1, 1, 1), (2, 2, 2), (1, 1, 4), (1, 4, 1))),
+    ("prefill", ((1, 1, 1), (2, 2, 2))),
+    ("decode", ((1, 1, 1), (2, 2, 2)))) for mesh in meshes)
+COST_SEQ, COST_BATCH = 64, 8
+
+
+def cost_key(arch: str, kind: str, mesh) -> str:
+    return f"{arch}|{kind}|{'x'.join(map(str, mesh))}"
+
+
+def _child_cost(out: Dict[str, np.ndarray]) -> None:
+    """``lower_cell`` + ``analyze_lowered`` of the reference on the reduced
+    cells of ``tests/test_dryrun_integration.py`` (layers 2, d_model 64,
+    vocab 256, seq 64 x batch 8, ``RunConfig(arch, multi_pod=True)``) for
+    every COST_CASES kind and ``(pod, data, model)`` mesh, built with
+    ``jax.sharding.Mesh`` over the forced host devices, as JSON."""
+    import json
+    import jax
+    from repro.configs import ShapeConfig, get_reduced
+    from repro.configs.base import RunConfig
+    from repro.runtime import pspec, steps
+    from repro.runtime.hlo_analysis import analyze_lowered
+    devs = np.array(jax.devices())
+    if devs.size != COST_DEVICES:
+        raise RuntimeError(f"{devs.size} devices, not {COST_DEVICES}")
+    res = {}
+    for arch in COST_ARCHS:
+        cfg = get_reduced(arch, layers=2, d_model=64, vocab=256)
+        run = RunConfig(arch=arch, multi_pod=True)
+        for kind, sizes in COST_CASES:
+            mesh = jax.sharding.Mesh(
+                devs[:int(np.prod(sizes))].reshape(sizes),
+                ("pod", "data", "model"))
+            shape = ShapeConfig("t", seq_len=COST_SEQ,
+                                global_batch=COST_BATCH, kind=kind)
+            with pspec.sharding_scope(mesh, run.sharding):
+                lowered, got = steps.lower_cell(cfg, run, shape)
+                hlo = analyze_lowered(lowered, lowered.compile())
+            hlo.pop("entry")
+            hlo["kind"] = got
+            res[cost_key(arch, kind, sizes)] = hlo
+    out["cost"] = np.array(json.dumps(res))
+
+
 def _entry_json(e):
     return list(e) if isinstance(e, tuple) else e
 
@@ -976,8 +1023,10 @@ def _child_layout(out: Dict[str, np.ndarray]) -> None:
     LAYOUT_RULES, for every arch at full size, as JSON: per leaf of the
     params, the optimizer state (``zero_pod``), every shape's batch and
     the decode cache (``seq_shard`` both ways, decode_32k's) the spec,
-    ``NamedSharding.shard_shape``, shape and dtype; and
-    ``choose_seq_attn`` for every cell of ``cells()``."""
+    ``NamedSharding.shard_shape``, shape and dtype; ``choose_seq_attn``
+    for every cell of ``cells()``; and the shape kind and
+    ``choose_seq_attn`` of every cell of ``cells(include_skips=True)``,
+    which ``lower_cell`` branches on."""
     import json
     import jax
     from repro.configs import ARCHS, SHAPES, cells, get_config
@@ -1013,6 +1062,10 @@ def _child_layout(out: Dict[str, np.ndarray]) -> None:
                 res[f"{mname}|{rules}|choose"] = {
                     f"{a}|{sh.name}": bool(steps.choose_seq_attn(
                         get_config(a), sh)) for a, sh, _ in cells()}
+                res[f"{mname}|{rules}|cells"] = {
+                    f"{a}|{sh.name}": [sh.kind, bool(steps.choose_seq_attn(
+                        get_config(a), sh))]
+                    for a, sh, _ in cells(include_skips=True)}
                 for arch in ARCHS:
                     cfg = get_config(arch)
                     p_abs = RP.abstract_params(cfg)
@@ -1044,5 +1097,5 @@ if __name__ == "__main__":
      "planner": _child_planner, "legs": _child_legs,
      "split": _child_split, "moe_ep": _child_moe_ep,
      "seq_attn": _child_seq_attn, "seq_models": _child_seq_models,
-     "layout": _child_layout}[what](arrays)
+     "layout": _child_layout, "cost": _child_cost}[what](arrays)
     np.savez(path, **arrays)
