@@ -118,7 +118,14 @@ and drives the port's paths:
   ``cost_analysis.analyze_cell`` on a one-device mesh and run on the card
   under ``FlopCounterMode``: the two dot-FLOP counts equal, the CUDA-event
   ms at least the H100 roofline's compute term, the terms printed with
-  the card's name and power limit.
+  the card's name and power limit; the card's peak memory over one call
+  within [0.8, 1.25] of the trace's arguments plus its peak of live
+  temporaries;
+* the dry run (phase 21): ``python -m repro_torch.launch.dryrun`` on
+  kimi-k2's ``train_4k`` and mamba2-370m's ``long_500k`` at full size over
+  both production meshes (16 x 16 and 2 x 16 x 16, shape only, traced on
+  the card's host), each record with the reference's keys and rendered by
+  ``scripts/roofline_table.py``.
 
 Every phase that fails raises, so the exit code is non-zero; without a
 CUDA device the script exits 2 and prints no result. Each phase prints its
@@ -133,11 +140,13 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -3563,6 +3572,11 @@ def seq_prefill(M, model, run, tokens, logits, flash, card: str) -> tuple:
 ROOFLINE_CELLS = (("gemma3-12b", "prefill", SERVE_BATCH, PROMPT_LEN),
                   (TRAIN_ARCH, "train", TRAIN_BATCH, TRAIN_SEQ))
 ROOFLINE_TIMED = 3             # CUDA-event timings of each step (median)
+# The card's peak over one call against the trace's arguments plus its peak
+# of live temporaries: both follow the same eager code's allocations and
+# frees; the card adds its allocator's rounding and cuBLAS workspaces, the
+# trace counts a storage until it dies.
+PEAK_RATIO_BOUNDS = (0.8, 1.25)
 
 
 def roofline_cell(arch: str, kind: str, batch: int, seq: int,
@@ -3581,7 +3595,7 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int,
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.runtime import pspec as PS
     from repro_torch.runtime import steps
-    from repro_torch.runtime.cost_analysis import analyze_cell
+    from repro_torch.runtime.cost_analysis import analyze
     from repro_torch.runtime.roofline import PEAK_FLOPS, roofline_report
     cfg = get_config(arch)
     run = RunConfig(arch=arch, attn_impl="blockwise", seed=SEED)
@@ -3591,8 +3605,9 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int,
     with PS.sharding_scope(PS.abstract_mesh((1, 1), ("data", "model")),
                            run.sharding):
         low, _ = steps.lower_cell(cfg, run, shape)
-    hlo = analyze_cell(low)
+    hlo, mem = analyze(low)
     trace_s = time.perf_counter() - t0
+    trace_peak = mem["argument_bytes"] + mem["temp_bytes"]
     roof = roofline_report({"hlo": hlo, "chips": 1}, cfg, shape)
 
     model = M.build_model(cfg, seed=SEED, device=DEVICE)
@@ -3616,6 +3631,7 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int,
         call()
     torch.cuda.synchronize()
     card_flops = fc.get_total_flops()
+    card_args, card_peak = card_memory(call)
     times = []
     for _ in range(ROOFLINE_TIMED):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -3638,7 +3654,10 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int,
            "roofline_fraction": roof["roofline_fraction"],
            "measured_model_flops_share": (
                roof["model_flops_global"] / (ms / 1e3) / PEAK_FLOPS),
-           "useful_flops_ratio": roof["useful_flops_ratio"], "card": card}
+           "useful_flops_ratio": roof["useful_flops_ratio"],
+           "trace_memory": mem, "trace_peak_bytes": trace_peak,
+           "card_allocated_bytes": card_args, "card_peak_bytes": card_peak,
+           "peak_ratio": card_peak / trace_peak, "card": card}
     emit({"roofline_cell": res})
     if card_flops != hlo["dot_flops_per_chip"]:
         raise RuntimeError(f"{arch} {kind}: the card ran {card_flops} dot "
@@ -3647,13 +3666,98 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int,
     if not ms >= res["t_compute_ms"]:
         raise RuntimeError(f"{arch} {kind}: {ms} ms measured, under the "
                            f"roofline's compute term {res['t_compute_ms']}")
+    lo, hi = PEAK_RATIO_BOUNDS
+    if not lo <= res["peak_ratio"] <= hi:
+        raise RuntimeError(f"{arch} {kind}: the card's peak {card_peak} B "
+                           f"is {res['peak_ratio']} of the trace's "
+                           f"{trace_peak} B, outside [{lo}, {hi}]")
     return res
+
+
+def card_memory(call) -> tuple:
+    """The card's allocated bytes just before ``call()`` and the most it
+    held during that one call."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    return before, torch.cuda.max_memory_allocated()
 
 
 def roofline_phase(card: str) -> list:
     """Phase 20: :func:`roofline_cell` for each of ROOFLINE_CELLS."""
     torch.cuda.empty_cache()
     return [roofline_cell(*c, card) for c in ROOFLINE_CELLS]
+
+
+# phase 21: the dry run (python -m repro_torch.launch.dryrun) at full size
+# over both production meshes on the card's host: kimi-k2's train_4k, the
+# heaviest trace, and mamba2-370m's long_500k, a batch of one; each JSON
+# rendered by scripts/roofline_table.py for both meshes
+DRYRUN_CELLS = (("kimi-k2-1t-a32b", "train_4k"),
+                ("mamba2-370m", "long_500k"))
+DRYRUN_MESHES = ("16x16", "2x16x16")
+DRYRUN_KEYS = ("arch", "shape", "kind", "mesh", "chips", "lower_s",
+               "compile_s", "memory", "cost_analysis", "hlo", "roofline")
+DRYRUN_MEMORY = ("argument_bytes", "output_bytes", "temp_bytes",
+                 "alias_bytes")
+DRYRUN_TIMEOUT = 600
+
+
+def dryrun_phase(out_dir: Path, python: str = sys.executable) -> list:
+    """Phase 21: the dry run of each of DRYRUN_CELLS on both meshes in a
+    subprocess (exit 0, one record a mesh with every key of the
+    reference's), then ``scripts/roofline_table.py`` on its JSON for each
+    mesh (exit 0, one row). Raises on any failure."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    recs = []
+    for arch, shape in DRYRUN_CELLS:
+        path = out_dir / f"dryrun_{arch}_{shape}.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [python, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--both-meshes", "--json", str(path)],
+            env=env, cwd=str(REPO), capture_output=True, text=True,
+            timeout=DRYRUN_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"dry run {arch} {shape} exited "
+                               f"{proc.returncode}:\n{proc.stdout[-2000:]}"
+                               f"{proc.stderr[-4000:]}")
+        got = json.loads(path.read_text())
+        if sorted(r.get("mesh") for r in got) != sorted(DRYRUN_MESHES):
+            raise RuntimeError(f"dry run {arch} {shape}: meshes "
+                               f"{[r.get('mesh') for r in got]}")
+        for r in got:
+            missing = [k for k in DRYRUN_KEYS if k not in r] + [
+                k for k in DRYRUN_MEMORY if k not in r.get("memory", {})]
+            if missing:
+                raise RuntimeError(f"dry run {arch} {shape} {r['mesh']}: "
+                                   f"no {missing} in {sorted(r)}")
+        for mesh in DRYRUN_MESHES:
+            table = subprocess.run(
+                [python, str(REPO / "scripts" / "roofline_table.py"),
+                 str(path), mesh], capture_output=True, text=True,
+                timeout=60)
+            rows = [line for line in table.stdout.splitlines()
+                    if line.startswith(arch)]
+            if table.returncode != 0 or len(rows) != 1:
+                raise RuntimeError(f"roofline_table.py {mesh} exited "
+                                   f"{table.returncode}, {len(rows)} rows:"
+                                   f"\n{table.stdout}{table.stderr}")
+            print(rows[0], flush=True)
+        for r in got:
+            rf = r["roofline"]
+            emit({"dryrun_cell": {
+                "arch": arch, "shape": shape, "mesh": r["mesh"],
+                "kind": r["kind"], "bound": rf["bound"],
+                **{k: rf[k] for k in ("t_compute_s", "t_memory_s",
+                                      "t_collective_s")},
+                "memory": r["memory"], "lower_s": r["lower_s"],
+                "trace_s": r["compile_s"], "process_s": wall}})
+        recs.extend(got)
+    return recs
 
 
 def main() -> int:
@@ -3941,6 +4045,12 @@ def main() -> int:
     # step traced on meta tensors and run on the card, their dot FLOPs equal
     roofline_phase(gpu_line())
     clock.mark("20 roofline")
+
+    # 21. the dry run over both production meshes: kimi-k2's train_4k and
+    # mamba2-370m's long_500k traced at full size, rendered as the table
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        dryrun_phase(Path(d))
+    clock.mark("21 dry run")
 
     # results
     worst = max(flash_cases, key=lambda c: c["rel_rms_err"])

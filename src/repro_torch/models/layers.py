@@ -10,12 +10,15 @@ so the same code path serves prefill, decode against a ring-buffer KV cache
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.runtime import pspec as PS
@@ -100,9 +103,77 @@ def _sdpa(q, k, v, mask, scale):
     return out.reshape(B, T, nq, h).to(v.dtype)
 
 
+class _Recompute(threading.local):
+    on = False
+
+
+_RECOMPUTE = _Recompute()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    """The scope of a KV block's recompute (a checkpoint's ``context_fn``
+    runs it on whichever thread autograd recomputes on)."""
+    prev, _RECOMPUTE.on = _RECOMPUTE.on, True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
+class _BlockPV(torch.autograd.Function):
+    """One KV block's ``p @ v`` ([B, nkv, g, T, bk] x [B, bk, nkv, h] ->
+    [B, nkv, g, T, h]) saving its two operands. In the block's recompute
+    the backward needs those operands, not the product, so the product is
+    not formed again, as XLA drops the reference's dead dot of its
+    remat."""
+
+    @staticmethod
+    def forward(ctx, p, vb):
+        ctx.save_for_backward(p, vb)
+        if _RECOMPUTE.on:
+            return p.new_empty(p.shape[:-1] + vb.shape[-1:])
+        return torch.einsum("bkgts,bskh->bkgth", p, vb)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, vb = ctx.saved_tensors
+        dp = dv = None
+        if ctx.needs_input_grad[0]:
+            dp = torch.einsum("bkgth,bskh->bkgts", g, vb)
+        if ctx.needs_input_grad[1]:
+            dv = torch.einsum("bkgts,bkgth->bskh", p, g)
+        return dp, dv
+
+
+def _kv_block(qh, kb, vb, kv_pos_b, q_pos, m, l, acc, causal, window,
+              scale, remat: bool):
+    """One KV block of the online softmax: the block's scores, mask,
+    running max, probabilities, correction, ``l`` and ``acc`` ->
+    (m, l, acc). ``remat`` forms ``p @ v`` through :class:`_BlockPV`."""
+    s = torch.einsum("btkgh,bskh->bkgts", qh, kb.float()) * scale
+    msk = _mask(q_pos, kv_pos_b, causal, window)            # [T, bk]
+    s = torch.where(msk[None, None, None], s, NEG_INF)
+    m_cur = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_cur[..., None])
+    corr = torch.exp(m - m_cur)
+    l = l * corr + p.sum(-1)
+    pv = (_BlockPV.apply(p, vb.float()) if remat
+          else torch.einsum("bkgts,bskh->bkgth", p, vb.float()))
+    acc = acc * corr[..., None] + pv
+    return m_cur, l, acc
+
+
 def _blockwise_sdpa(q, k, v, q_pos, kv_pos, causal, window, scale,
                     block_kv: int):
-    """Flash-style online-softmax loop over KV blocks. Memory O(T * block_kv)."""
+    """Flash-style online-softmax loop over KV blocks. Memory O(T * block_kv).
+
+    With grad enabled and more than one block each block's step runs
+    under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+    of its scan step): the backward saves no block's scores or
+    probabilities, it recomputes them, ``QK^T`` once a block. One block is
+    the whole row and the reference's compiled trip-1 scan recomputes
+    nothing, so neither does this."""
     B, T, nq, h = q.shape
     S, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -118,20 +189,30 @@ def _blockwise_sdpa(q, k, v, q_pos, kv_pos, causal, window, scale,
     l = torch.zeros((B, nkv, g, T), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, nkv, g, T, h), dtype=torch.float32,
                       device=q.device)
+    remat = torch.is_grad_enabled() and nb > 1
     for i in range(nb):
         blk = slice(i * block_kv, (i + 1) * block_kv)
-        s = torch.einsum("btkgh,bskh->bkgts", qh, k[:, blk].float()) * scale
-        msk = _mask(q_pos, kv_pos[blk], causal, window)     # [T, bk]
-        s = torch.where(msk[None, None, None], s, NEG_INF)
-        m_cur = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_cur[..., None])
-        corr = torch.exp(m - m_cur)
-        l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bkgts,bskh->bkgth", p, v[:, blk].float())
-        m = m_cur
+        args = (qh, k[:, blk], v[:, blk], kv_pos[blk], q_pos, m, l, acc,
+                causal, window, scale, remat)
+        m, l, acc = (checkpoint(_kv_block, *args, use_reentrant=False,
+                                context_fn=_recompute_context())
+                     if remat else _kv_block(*args))
     out = acc / torch.clamp_min(l[..., None], 1e-37)
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, nq, h).to(v.dtype)
+
+
+def _recompute_context():
+    """A KV block checkpoint's ``context_fn``: its recompute skips the
+    dead ``p @ v`` and counts, inside a cell's cost trace, where its
+    forward counted (``cost_analysis.recount``)."""
+    from repro_torch.runtime import cost_analysis as CA
+    recount = CA.recount()
+
+    @contextlib.contextmanager
+    def recompute():
+        with _recomputing(), recount():
+            yield
+    return lambda: (contextlib.nullcontext(), recompute())
 
 
 def _axes(entry) -> Tuple[str, ...]:

@@ -23,15 +23,41 @@ coordinate (where a clipped band or an uneven edge would show) and keeps
 the one with more FLOPs. The slices and the joins are shapes only and
 cost nothing.
 
+**Layouts.** Every tensor of the trace carries a layout (per dimension
+the mesh axes that split it, or none): parameters their
+``param_shardings``, step inputs their ``batch_shardings``, constrained
+tensors the constraint's spec, region outputs their ``out_specs``. An op
+gives its output the layout its inputs imply: a view maps it (reshapes
+by grouping dimensions), an elementwise op takes its most split input's
+(matched from the right, broadcast dimensions whole), a reduction drops
+the reduced dimensions', a product ``[.., M, K] x [.., K, N]`` takes
+batch and M from one operand and N from the other, the larger operand
+keeping a mesh axis both ask for. A tensor without a layout is whole.
+
+Layouts also flow backwards, as XLA's sharding propagation does: what an
+op's output layout implies for its inputs (views inverted, elementwise
+inputs matched from the right, a product's operands its batch, row or
+column splits and the other operand's split of the contracted dimension)
+is pushed back to the ops that made them, and so is what a mapped
+region's ``in_specs`` ask of its inputs. An op whose output gains a
+split on an axis its layout left free is counted again at the finer
+layout (:meth:`_CellTrace.refine`); a product keeps its contraction's
+split.
+
 **dot_flops_per_chip** = the FLOPs of every matmul, ``bmm``, ``baddbmm``,
-einsum and convolution (``torch.utils.flop_counter``'s formulas) outside
-the mapped regions divided by the number of chips, plus one coordinate's
-FLOPs inside each mapped region: what one device of the reference's SPMD
-program runs. One exception: the MoE's always-on branches (shared experts,
-dense residual) are added to the expert-parallel output, whose layout is
-the region's (tokens over the batch axes, whole over 'model'), so they are
-counted at that layout (:func:`counted_at`): divided by the token split
-and by the split of their 'ffn' dimension, not by every chip.
+einsum and convolution (``torch.utils.flop_counter``'s formulas) at the
+shard shapes of their layouts: each dimension split over axes counts
+ceil(n / split) (``named_sharding``'s shard shape, XLA's padding), a
+dimension no layout splits counts whole. A product's iteration space is
+its output's shard times its contracted dimension's, split over the axes
+either operand splits it on and the output does not use (slicing the
+other operand, whole there, is free). Inside a mapped region one
+coordinate's FLOPs count whole: what one device of the reference's SPMD
+program runs. One exception: the MoE's always-on branches (shared
+experts, dense residual) are added to the expert-parallel output, whose
+layout is the region's (tokens over the batch axes, whole over 'model'),
+so they are counted at that layout (:func:`counted_at`): divided by the
+token split and by the split of their 'ffn' dimension.
 
 **mem_bytes_per_chip** = the operand and output bytes of each op that
 materializes (views and allocations count nothing), per device by the
@@ -56,16 +82,19 @@ out·(g−1)/g, permute out):
 - at each ``logical_constraint`` whose resolved spec differs from its
   input's recorded layout: an all-gather over the axes the input is split
   on and the spec is not;
-- at each product whose operands both split the contracted dimension over
-  the same axes (a row-parallel product): an all-reduce of its output.
+- at each product whose contracted dimension splits (a row-parallel
+  product): an all-reduce of its output over those axes.
 
-Layouts are recorded on parameters (``param_shardings``), step inputs
-(``batch_shardings``), constrained tensors and region outputs, and carried
-through views, casts, elementwise ops and products; a tensor without one
-is taken to arrive in the layout its consumer wants, and costs nothing.
-Collectives over a group of one device are not counted. XLA's own
-resharding choices and rematerialization are not modelled, so these bytes
-are held to the reference's only as ratios, never gated.
+Here a tensor without a layout is taken to arrive in the layout its
+consumer wants, and costs nothing. Collectives over a group of one device
+are not counted. XLA's own resharding choices and rematerialization are
+not modelled, so these bytes are held to the reference's only as ratios,
+never gated.
+
+**Memory** (:func:`analyze`): the step's arguments at their shardings'
+shard shapes, and the peak of the bytes a device holds of the storages
+the step allocates, each counted by the layout of the tensor that made
+it until the storage itself dies.
 
 The reference's ``entry`` and ``n_computations`` name HLO computations and
 have no meaning here; :func:`analyze_cell` leaves them out.
@@ -76,6 +105,7 @@ import contextlib
 import dataclasses
 import math
 import threading
+import weakref
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -99,6 +129,13 @@ _SAME_LAYOUT = {aten.detach.default, aten.alias.default,
 _RESHAPES = {aten.view.default, aten._unsafe_view.default}
 _MATMULS = {aten.mm.default, aten.bmm.default, aten.addmm.default,
             aten.baddbmm.default}
+# ops whose outputs are pieces of their first input
+_SPLITS = {aten.split, aten.split_with_sizes, aten.chunk, aten.unbind,
+           aten.unsafe_split, aten.tensor_split}
+# reductions over ``dim`` (their second argument or keyword)
+_REDUCTIONS = {aten.sum, aten.mean, aten.amax, aten.amin, aten.max,
+               aten.min, aten.logsumexp, aten.argmax, aten.argmin,
+               aten.prod, aten.var, aten.std, aten.any, aten.all}
 
 
 def wire_bytes(kind: str, payload: float, group: int) -> float:
@@ -166,6 +203,11 @@ class _CellTrace(TorchDispatchMode):
         self.split: Optional[int] = None         # counted_at's divisor
         self.quiet = 0                           # shape-only work
         self.alive: List[object] = []            # keeps keyed ids unique
+        self.storages: Dict[int, object] = {}    # id -> weakref, tracked
+        self.nodes = WeakIdKeyDictionary()       # tensor -> its _Node
+        self.gathered_on = WeakIdKeyDictionary()  # weight -> fsdp axes
+        self.unread: Dict[int, torch.Tensor] = {}  # arguments not read yet
+        self.events: List[Tuple] = []            # allocations and frees
 
     # ---- layouts
     def size(self, axes) -> int:
@@ -177,6 +219,9 @@ class _CellTrace(TorchDispatchMode):
     def set_layout(self, t: torch.Tensor, spec) -> None:
         spec = tuple(spec) + (None,) * (t.dim() - len(spec))
         self.layouts[t] = spec[:t.dim()]
+        nd = self.nodes.get(t)
+        if nd is not None:
+            nd.layout = self.layouts[t]
 
     def shard_bytes(self, t: torch.Tensor, spec) -> float:
         return _nbytes(t) / self.size(a for e in spec for a in _axes(e))
@@ -195,6 +240,8 @@ class _CellTrace(TorchDispatchMode):
         self.set_layout(p, tuple(
             tuple(a for a in _axes(e) if a not in fsdp) or None
             for e in spec))
+        self.gathered_on[p] = tuple(
+            tuple(a for a in _axes(e) if a in fsdp) for e in spec)
 
     def regather(self, t: torch.Tensor, target) -> None:
         """An all-gather where ``t``'s recorded layout splits a dimension
@@ -210,16 +257,87 @@ class _CellTrace(TorchDispatchMode):
         self.collective("all-gather", _nbytes(t) / self.size(kept),
                         self.size(gone))
 
+    # ---- live bytes
+    def known(self, tensors) -> None:
+        """Storages that exist before the step (its arguments): not
+        allocated by it, whatever updates them in place."""
+        for t in tensors:
+            st = t.untyped_storage()
+            self.storages.setdefault(id(st), weakref.ref(
+                st, lambda _, key=id(st): self.storages.pop(key, None)))
+            self.unread[id(t)] = t
+
+    def reads(self, args, kwargs) -> None:
+        """Arguments an op reads: the step uses them (XLA drops the
+        arguments a step never reads from its executable)."""
+        if not self.unread:
+            return
+        for a in list(args) + list(kwargs.values()):
+            for t in (a if isinstance(a, (list, tuple)) else (a,)):
+                if isinstance(t, torch.Tensor):
+                    self.unread.pop(id(t), None)
+
+    def allocated(self, outs, div: Optional[float]) -> None:
+        """Each new storage among ``outs`` is live on a device from here
+        until the storage itself dies: not when its last Python tensor
+        does, since autograd's saved tensors keep storages alive past
+        them. Its bytes there are :meth:`held`'s, by the layout its tensor
+        ends the trace with (a later consumer can refine it), so they are
+        summed in :attr:`live` and :attr:`peak` only when read."""
+        for o in outs:
+            if not isinstance(o, torch.Tensor):
+                continue
+            st = o.untyped_storage()
+            if id(st) in self.storages or st.nbytes() == 0:
+                continue
+            key = id(st)
+            size = (st.nbytes() / div if div is not None
+                    else (st.nbytes(), _node_of(self, o)))
+            self.storages[key] = weakref.ref(
+                st, lambda _, key=key: self.freed(key))
+            self.events.append((key, size))
+
+    def freed(self, key: int) -> None:
+        self.storages.pop(key, None)
+        self.events.append((key, None))
+
+    def _replay(self) -> Tuple[float, float]:
+        live = peak = 0.0
+        held: Dict[int, float] = {}
+        for key, size in self.events:
+            if size is None:
+                live -= held.pop(key, 0.0)
+                continue
+            if isinstance(size, tuple):
+                n, nd = size
+                size = n * self.share(nd.get(self))
+            held[key] = size
+            live += size
+            peak = max(peak, live)
+        return live, peak
+
+    @property
+    def live(self) -> float:
+        """Bytes a device holds of the storages the step allocated and
+        that are alive now."""
+        return self._replay()[0]
+
+    @property
+    def peak(self) -> float:
+        """The most :attr:`live` has been so far."""
+        return self._replay()[1]
+
     # ---- counts
     def scope_acc(self) -> _Acc:
         return self.accs[-1]
 
-    def divisor(self) -> float:
-        """Undivided inside a mapped region, else by ``counted_at``'s
-        split or every chip. A backward op (grad off, an autograd node
-        running) takes the divisor its node was tagged with; a
-        recompute's ops (grad on) run in the Python scope of their
-        forward."""
+    def divisor(self) -> Optional[float]:
+        """1 inside a mapped region, ``counted_at``'s split under it, else
+        None: the op counts at the shard shapes of its layouts
+        (:meth:`held`, :meth:`flop_share`). A backward op (grad off, an
+        autograd node running) takes the divisor its node was tagged
+        with; a recompute's ops (grad on) run in the Python scope of their
+        forward (or re-enter it, :func:`recount`)."""
         if self.depth:
             return 1.0
         node = torch._C._current_autograd_node()
@@ -227,7 +345,92 @@ class _CellTrace(TorchDispatchMode):
             tag = node.metadata.get(_TAG)
             if tag is not None:
                 return float(tag)
-        return float(self.split if self.split is not None else self.n_chips)
+        return None if self.split is None else float(self.split)
+
+    def share(self, t: torch.Tensor) -> float:
+        """The fraction of ``t`` one device holds in its layout (none:
+        whole): each dimension split over axes counts ceil(n / split),
+        ``named_sharding``'s shard shape and XLA's padding."""
+        spec = self.layout(t)
+        if not spec or t.numel() == 0:
+            return 1.0
+        frac = 1.0
+        for n, e in zip(t.shape, spec):
+            k = self.size(_axes(e))
+            if k > 1:
+                frac *= -(-n // k) / n
+        return frac
+
+    def held(self, t: torch.Tensor, div: Optional[float]) -> float:
+        """``t``'s bytes on one device."""
+        if div is not None:
+            return _nbytes(t) / div
+        return _nbytes(t) * self.share(t)
+
+    def flop_share(self, func, args, out) -> float:
+        """The fraction of an op's FLOPs one device runs: its iteration
+        space at the shard shapes: a product's is its output's share (the
+        layout :meth:`_propagate` gave it) times that of the contracted
+        dimension (:meth:`_contracted`), any other op's its output's."""
+        if func in _MATMULS:
+            ins = [a for a in args if isinstance(a, torch.Tensor)]
+            n = ins[-2].shape[-1]
+            k = self.size(self._contracted(ins[-2], ins[-1], out))
+            return self.share(out) * (-(-n // k) / n if n else 1.0)
+        return self.share(out) if isinstance(out, torch.Tensor) else 1.0
+
+    def _contracted(self, a: torch.Tensor, b: torch.Tensor,
+                    out: torch.Tensor, idle: bool = True) -> List[str]:
+        """The axes ``a @ b``'s contracted dimension splits over, given
+        its output's layout (``idle``: with the idle axes :meth:`_idle`
+        adds)."""
+        la, lb = self.layout(a), self.layout(b)
+        if la is None and lb is None:
+            return []
+        lb = self._weight_layout(b, la, lb)
+        _, got = _product_layout(la or (None,) * a.dim(), lb,
+                                 a.numel() >= b.numel())
+        used = {x for e in self.layout(out) or () for x in _axes(e)}
+        got = [x for x in got if x not in used]
+        return got + (self._idle(b, la, lb, used | set(got)) if idle
+                      else [])
+
+    def _weight_layout(self, b: torch.Tensor, la, lb) -> Tuple:
+        """A weight's layout in a product: its 'fsdp' split stays where
+        the activation leaves those axes free (XLA gathers a weight only
+        where its split is in the way)."""
+        lb = lb or (None,) * b.dim()
+        g = self.gathered_on.get(b)
+        if g is None:
+            return lb
+        taken = {x for lay in (la, lb) for e in lay or () for x in _axes(e)}
+        out = []
+        for e, f in zip(lb, g):
+            add = tuple(x for x in _axes(f) if x not in taken)
+            taken.update(add)
+            got = _axes(e) + add
+            out.append(None if not got else got[0] if len(got) == 1
+                       else got)
+        return tuple(out)
+
+    def _idle(self, b: torch.Tensor, la, lb, used) -> List[str]:
+        """A weight split over 'fsdp' on its contracted dimension, which no
+        other axis splits, whose 'fsdp' axes the activation uses, is not
+        gathered either: XLA moves its split onto the mesh axes nothing
+        uses (an all-to-all) and splits the contraction over those."""
+        g = self.gathered_on.get(b)
+        if g is None or len(g) < 2 or not _axes(g[-2]) or any(
+                _axes(lb[-2])):
+            return []
+        taken = set(used) | {x for lay in (la, lb) for e in lay or ()
+                             for x in _axes(e)}
+        return [x for x in self.axes if x not in taken and self.axes[x] > 1]
+
+    def contracted(self, op: "_Op") -> List[str]:
+        """The axes ``op``'s operands split its contraction over: a
+        refinement leaves them, not the idle axes, to the contraction."""
+        a, b = (n.get(self) for n in op.inputs()[-2:])
+        return self._contracted(a, b, op.outs[0].get(self), idle=False)
 
     def collective(self, kind: str, payload: float, group: int) -> None:
         if group <= 1:
@@ -261,27 +464,51 @@ class _CellTrace(TorchDispatchMode):
             self.collective("all-gather", _nbytes(a) / self.size(other),
                             self.size(fsdp))
 
-    def _propagate(self, func, args, out) -> None:
+    def _propagate(self, func, args, kwargs, out) -> None:
+        if func._overloadpacket in _REDUCTIONS and not (
+                len(args) > 1 and isinstance(args[1], torch.Tensor)):
+            have = self.layout(args[0])
+            for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                spec = _reduced_layout(have, args, kwargs, o)
+                if spec is not None:
+                    self.set_layout(o, spec)
+            return
+        if isinstance(out, (tuple, list)) and func._overloadpacket in _SPLITS:
+            have = self.layout(args[0])
+            if have is not None:
+                for o in out:
+                    self.set_layout(o, _piece(tuple(args[0].shape), have,
+                                              tuple(o.shape)))
+            return
         if not isinstance(out, torch.Tensor):
             return
         ins = [a for a in args if isinstance(a, torch.Tensor)]
+        if func is aten.cat.default:
+            ins = list(args[0])
         if func in _MATMULS:
             a, b = ins[-2], ins[-1]
             la, lb = self.layout(a), self.layout(b)
             if la is None and lb is None:
                 return
-            la = la or (None,) * a.dim()
-            lb = lb or (None,) * b.dim()
-            used = {x for e in la[:-1] for x in _axes(e)}
-            col = tuple(x for x in _axes(lb[-1]) if x not in used) or None
-            spec = la[:-1] + (col,)
-            shared = [x for x in _axes(la[-1]) if x in _axes(lb[-2])]
+            lb = self._weight_layout(b, la, lb)
+            spec, contracted = _product_layout(
+                la or (None,) * a.dim(), lb, a.numel() >= b.numel())
+            used = {x for e in spec for x in _axes(e)} | set(contracted)
+            contracted = contracted + self._idle(b, la, lb, used)
             self.collective("all-reduce", self.shard_bytes(out, spec),
-                            self.size(shared))
+                            self.size(contracted))
             self.set_layout(out, spec)
             return
         src = ins[0] if ins else None
         have = self.layout(src)
+        if src is not None and src in self.gathered_on and (
+                func in _SAME_LAYOUT or func in (aten.t.default,
+                                                 aten.transpose.int,
+                                                 aten.permute.default)):
+            g = self._view_layout(func, args, src, self.gathered_on[src],
+                                  out)
+            if g is not None:
+                self.gathered_on[out] = g
         if func in _SAME_LAYOUT or func.is_view or func in _RESHAPES:
             if have is not None:
                 spec = self._view_layout(func, args, src, have, out)
@@ -291,8 +518,12 @@ class _CellTrace(TorchDispatchMode):
         best, most = None, 1
         for a in ins:
             la = self.layout(a)
-            if la is None or a.shape != out.shape:
+            if la is None or a.dim() > out.dim():
                 continue
+            off = out.dim() - a.dim()
+            la = (None,) * off + tuple(
+                e if n == out.shape[off + i] else None
+                for i, (n, e) in enumerate(zip(a.shape, la)))
             n = self.size(x for e in la for x in _axes(e))
             if best is None or n > most:
                 best, most = la, n
@@ -301,15 +532,28 @@ class _CellTrace(TorchDispatchMode):
 
     @staticmethod
     def _view_layout(func, args, src, have, out) -> Optional[Tuple]:
+        nd = src.dim()
         if func is aten.t.default and len(have) == 2:
             return have[::-1]
         if func is aten.transpose.int:
-            d0, d1 = (d % src.dim() for d in args[1:3])
+            d0, d1 = (d % nd for d in args[1:3])
             spec = list(have)
             spec[d0], spec[d1] = spec[d1], spec[d0]
             return tuple(spec)
         if func is aten.permute.default:
-            return tuple(have[d % src.dim()] for d in args[1])
+            return tuple(have[d % nd] for d in args[1])
+        if func is aten.unsqueeze.default:
+            d = args[1] % (nd + 1)
+            return have[:d] + (None,) + have[d:]
+        if func is aten.select.int:
+            d = args[1] % nd
+            return have[:d] + have[d + 1:]
+        if func in (aten.expand.default, aten.slice.Tensor,
+                    aten.narrow.default):
+            return _piece(tuple(src.shape), have, tuple(out.shape))
+        if func in (aten.squeeze.dim, aten.squeeze.dims,
+                    aten.squeeze.default):
+            return _squeezed(tuple(src.shape), have, tuple(out.shape))
         if tuple(out.shape) == tuple(src.shape):
             return have
         if func in _RESHAPES:
@@ -326,28 +570,325 @@ class _CellTrace(TorchDispatchMode):
                 if r is not NotImplemented:
                     return r
         out = func(*args, **kwargs)
+        self.reads(args, kwargs)
         if self.quiet:
             return out
         self._param_uses(args)
+        self._propagate(func, args, kwargs, out)
         acc, div = self.scope_acc(), self.divisor()
-        if packet in flop_registry:
-            acc.flops += flop_registry[packet](*args, **kwargs,
-                                               out_val=out) / div
-        if not func.is_view and func not in _NO_TRAFFIC:
-            flat = list(args) + list(kwargs.values())
-            n = sum(_nbytes(a) for a in flat if isinstance(a, torch.Tensor))
-            outs = out if isinstance(out, (tuple, list)) else (out,)
-            n += sum(_nbytes(o) for o in outs if isinstance(o, torch.Tensor))
-            acc.bytes += n / div
-        self._propagate(func, args, out)
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        op = _Op(self, func, args, kwargs, outs, acc,
+                 flop_registry[packet](*args, **kwargs, out_val=out)
+                 if packet in flop_registry else 0.0)
+        self.count(op, div)
+        if div is None and not func._schema.is_mutable:
+            op.outs = [self.node(o, op) for o in outs
+                       if isinstance(o, torch.Tensor)]
+            self._refine([(nd, want) for o in op.outs
+                          if o.layout is not None
+                          for nd, want in _implied(op, o, o.layout)])
+        if not func.is_view:
+            self.allocated(outs, div)
         return out
+
+    def node(self, t: torch.Tensor, op: Optional["_Op"] = None
+             ) -> "_Node":
+        """``t``'s node: made by ``op`` (a new one), else the one it has,
+        else a leaf."""
+        if op is None:
+            got = self.nodes.get(t)
+            if got is not None:
+                return got
+        nd = _Node(t, op, t in self.params)
+        nd.layout = self.layout(t)
+        self.nodes[t] = nd
+        return nd
+
+    # ---- per-op counts, and their recount at a finer layout
+    def count(self, op: "_Op", div: Optional[float], sign: float = 1.0
+              ) -> None:
+        """Add (``sign`` -1: take back) ``op``'s FLOPs and bytes on one
+        device to the accumulator it was counted in."""
+        if op.flops:
+            args = tuple(a.get(self) if isinstance(a, _Node) else a
+                         for a in op.args)
+            out = [o.get(self) for o in op.outs]
+            op.acc.flops += sign * (
+                op.flops / div if div is not None
+                else op.flops * self.flop_share(
+                    op.func, args, out[0] if len(out) == 1 else out))
+        if not op.func.is_view and op.func not in _NO_TRAFFIC:
+            op.acc.bytes += sign * sum(
+                self.held(t, div) for t in op.tensors(self))
+
+    def refine(self, t: torch.Tensor, spec) -> None:
+        """A consumer (a mapped region's input spec) wants ``t`` split over
+        mesh axes its layout leaves free. XLA's sharding propagation runs
+        the ops that made ``t`` split that way too, back through views,
+        elementwise ops and products as far as the split maps: each such
+        op (outside the mapped regions) is counted again at the finer
+        layout."""
+        self._refine([(self.node(t), spec)])
+
+    def _refine(self, todo: List[Tuple["_Node", Tuple]]) -> None:
+        while todo:
+            nd, want = todo.pop()
+            if nd.param:
+                continue
+            have = self.layout(nd.get(self))
+            op = nd.op
+            if op is not None and op.func in _MATMULS:
+                keep = set(self.contracted(op))     # a product keeps its
+                want = tuple(tuple(x for x in _axes(e) if x not in keep)
+                             or None for e in want)  # contraction's split
+            new = _finer(have or (None,) * len(nd.shape), want, nd.shape,
+                         self.axes)
+            if new is None:
+                continue
+            if op is not None:
+                self.count(op, None, -1.0)
+            nd.layout = new
+            self.set_layout(nd.get(self), new)
+            if op is None:
+                continue
+            for o in op.outs:
+                if o is not nd:
+                    todo.append((o, _piece(nd.shape, new, o.shape)))
+            self.count(op, None)
+            todo.extend(_implied(op, nd, new))
+
+class _Node:
+    """A tensor of the trace as a product of an op outside the mapped
+    regions: its shape, dtype, layout and the op that made it (None for a
+    leaf: an argument, a parameter, a region's output). The tensor is held
+    weakly; nodes hold their ops and ops their input nodes, so the chain
+    behind a live tensor stays for :meth:`_CellTrace.refine` when the
+    tensors in it have died."""
+    __slots__ = ("ref", "shape", "dtype", "layout", "op", "param", "dead")
+
+    def __init__(self, t: torch.Tensor, op: Optional["_Op"], param: bool):
+        self.ref = weakref.ref(t)
+        self.shape, self.dtype = tuple(t.shape), t.dtype
+        self.layout, self.op, self.param, self.dead = None, op, param, None
+
+    def get(self, tr: "_CellTrace") -> torch.Tensor:
+        """The tensor, or once it has died a meta stand-in in its
+        layout."""
+        t = self.ref()
+        if t is not None:
+            return t
+        if self.dead is None:
+            with _quiet():                     # no allocation of the step
+                self.dead = torch.empty(self.shape, dtype=self.dtype,
+                                        device="meta")
+            if self.layout is not None:
+                tr.layouts[self.dead] = self.layout
+        return self.dead
+
+
+class _Op:
+    """One op as counted, with its input nodes: what
+    :meth:`_CellTrace.refine` counts again at a finer layout."""
+    __slots__ = ("func", "acc", "flops", "args", "kw", "outs")
+
+    def __init__(self, tr: "_CellTrace", func, args, kwargs, outs,
+                 acc: "_Acc", flops: float):
+        self.func, self.acc, self.flops = func, acc, flops
+
+        def wrap(a):
+            if isinstance(a, torch.Tensor):
+                return _node_of(tr, a)
+            if isinstance(a, (list, tuple)) and a and all(
+                    isinstance(t, torch.Tensor) for t in a):
+                return [_node_of(tr, t) for t in a]
+            return a
+        self.args = tuple(wrap(a) for a in args)
+        self.kw = [_node_of(tr, v) for v in kwargs.values()
+                   if isinstance(v, torch.Tensor)]
+        self.outs = [_node_of(tr, o) for o in outs
+                     if isinstance(o, torch.Tensor)]
+
+    def inputs(self) -> List["_Node"]:
+        return [a for a in self.args if isinstance(a, _Node)]
+
+    def tensors(self, tr: "_CellTrace") -> List[torch.Tensor]:
+        return [n.get(tr) for n in self.inputs() + self.kw + self.outs]
+
+
+def _node_of(tr: "_CellTrace", t: torch.Tensor) -> _Node:
+    nd = tr.nodes.get(t)
+    if nd is None:
+        nd = _Node(t, None, t in tr.params)
+        nd.layout = tr.layout(t)
+        tr.nodes[t] = nd
+    return nd
+
+
+def _finer(have: Tuple, want, shape, axes: Dict[str, int]
+           ) -> Optional[Tuple]:
+    """``have`` with the axes ``want`` splits a dimension over added where
+    ``have`` uses them nowhere and the dimension is larger than one, or
+    None when nothing is added."""
+    want = tuple(want) + (None,) * (len(have) - len(tuple(want)))
+    used = {a for e in have for a in _axes(e)}
+    out, changed = [], False
+    for n, h, w in zip(shape, have, want):
+        add = [a for a in _axes(w) if a not in used and a in axes]
+        if add and n > 1:
+            used.update(add)
+            got = _axes(h) + tuple(add)
+            out.append(got[0] if len(got) == 1 else got)
+            changed = True
+        else:
+            out.append(h)
+    return tuple(out) if changed else None
+
+
+def _implied(op: _Op, x: _Node, spec: Tuple) -> List[Tuple]:
+    """(input node, the layout ``x``'s new layout ``spec`` implies for it)
+    for each input of ``op``, the op that made ``x``, where the split maps
+    back: views inverted, elementwise inputs matched from the right, a
+    product's operands taking its batch and row or column splits and the
+    other operand's split of the contracted dimension (slicing an operand
+    whole there is free, and XLA prefers it to gathering the other)."""
+    func = op.func
+    ins = op.inputs()
+    out_shape = x.shape
+    if func is aten.cat.default:
+        d = (op.args[1] if len(op.args) > 1 else 0) % len(out_shape)
+        return [(n, spec[:d] + (None,) + spec[d + 1:]) for n in op.args[0]]
+    if not ins:
+        return []
+    src = ins[0]
+    nd_in = len(src.shape)
+    if func in _MATMULS:
+        a, b = ins[-2], ins[-1]
+        la = a.layout or (None,) * len(a.shape)
+        lb = b.layout or (None,) * len(b.shape)
+        nb = len(spec) - 2
+        return [(a, spec[:nb] + (spec[-2], lb[-2])),
+                (b, spec[:nb] + (la[-1], spec[-1]))]
+    if func is aten.t.default:
+        return [(src, spec[::-1])]
+    if func is aten.transpose.int:
+        d0, d1 = (d % nd_in for d in op.args[1:3])
+        back = list(spec)
+        back[d0], back[d1] = back[d1], back[d0]
+        return [(src, tuple(back))]
+    if func is aten.permute.default:
+        back = [None] * nd_in
+        for i, d in enumerate(op.args[1]):
+            back[d % nd_in] = spec[i]
+        return [(src, tuple(back))]
+    if func in _RESHAPES:
+        back = _reshape_layout(out_shape, spec, src.shape)
+        return [] if back is None else [(src, back)]
+    if func.is_view or func in _SAME_LAYOUT or \
+            func._overloadpacket in _SPLITS:
+        if func is aten.select.int:
+            d = op.args[1] % nd_in
+            return [(src, spec[:d] + (None,) + spec[d:])]
+        if nd_in == len(out_shape):
+            return [(src, spec)]
+        return [(src, _squeezed(out_shape, spec, src.shape))]
+    if func._overloadpacket in _REDUCTIONS:
+        return []
+    got = []
+    for u in ins:
+        off = len(out_shape) - len(u.shape)
+        if off < 0:
+            continue
+        got.append((u, tuple(
+            spec[off + i] if n == out_shape[off + i] else None
+            for i, n in enumerate(u.shape))))
+    return got
+
+
+def _squeezed(src, have: Tuple, dst) -> Tuple:
+    """The layout of a view of shape ``dst`` that adds or drops size-1
+    dimensions of one of shape ``src`` in layout ``have``."""
+    kept = [e for n, e in zip(src, have) if n != 1]
+    kept.reverse()
+    return tuple(None if n == 1 or not kept else kept.pop()
+                 for n in dst)
+
+
+def _piece(src, have: Tuple, dst) -> Tuple:
+    """The layout of a piece of shape ``dst`` of a tensor of shape ``src``
+    in layout ``have``: a slice or a split keeps its dimensions' splits,
+    an ``unbind`` drops its dimension, a broadcast adds whole ones."""
+    if len(dst) == len(src):
+        return tuple(have)
+    if len(dst) < len(src):
+        return _squeezed(src, have, dst)
+    off = len(dst) - len(src)
+    return (None,) * off + tuple(
+        e if n == dst[off + i] else None
+        for i, (n, e) in enumerate(zip(src, have)))
+
+
+def _product_layout(la: Tuple, lb: Tuple, a_larger: bool
+                    ) -> Tuple[Tuple, List[str]]:
+    """The layout of ``a @ b`` (``[.., M, K] x [.., K, N]``) from its
+    operands' and the axes its contracted dimension splits over. Where
+    the two ask for one mesh axis on different dimensions the larger
+    operand keeps its split and the smaller one is taken whole there
+    (moving the smaller is cheaper, and XLA does that). The contracted
+    dimension splits over the axes either operand splits it on and the
+    output does not use: the other operand is whole there, and slicing it
+    is free."""
+    batch_a, batch_b = la[:-2], lb[:-2]
+    used = set()
+
+    def take(e):
+        got = tuple(x for x in _axes(e) if x not in used)
+        used.update(got)
+        return (got if len(got) > 1 else got[0]) if got else None
+
+    if a_larger:
+        batch = tuple(take(e) for e in batch_a)
+        m = take(la[-2])
+        batch = tuple(e if e is not None else take(f)
+                      for e, f in zip(batch, batch_b))
+        n = take(lb[-1])
+    else:
+        batch = tuple(take(e) for e in batch_b)
+        n = take(lb[-1])
+        batch = tuple(e if e is not None else take(f)
+                      for e, f in zip(batch, batch_a))
+        m = take(la[-2])
+    contracted = [x for x in _axes(la[-1]) + _axes(lb[-2])
+                  if x not in used]
+    return batch + (m, n), list(dict.fromkeys(contracted))
+
+
+def _reduced_layout(have: Optional[Tuple], args, kwargs, out
+                    ) -> Optional[Tuple]:
+    """A reduction's layout: its input's, less (or, keeping dimensions,
+    whole over) the dimensions it reduces."""
+    if have is None or not isinstance(out, torch.Tensor):
+        return None
+    src = args[0]
+    dims = args[1] if len(args) > 1 else kwargs.get("dim")
+    if dims is None or (isinstance(dims, (list, tuple)) and not dims):
+        dims = range(src.dim())
+    if isinstance(dims, int):
+        dims = [dims]
+    if not all(isinstance(d, int) for d in dims):
+        return None
+    dims = {d % src.dim() for d in dims} if src.dim() else set()
+    keep = out.dim() == src.dim()
+    spec = tuple(None if i in dims else e for i, e in enumerate(have)
+                 if keep or i not in dims)
+    return spec if len(spec) == out.dim() else None
 
 
 def _reshape_layout(src: Tuple[int, ...], have: Tuple,
                     dst: Tuple[int, ...]) -> Optional[Tuple]:
     """A reshape's layout: dimensions grouped where the running products
     of ``src`` and ``dst`` meet; a group's split (every axis its source
-    dimensions are split over) goes to its outermost target dimension.
+    dimensions are split over) goes to its outermost target dimension
+    larger than one.
     A merge of two split dimensions is no block split in row-major order,
     but it keeps what the counts need: how many devices share the tensor,
     and over which axes a later spec must gather it."""
@@ -373,7 +914,11 @@ def _reshape_layout(src: Tuple[int, ...], have: Tuple,
                 j += 1
         axes = tuple(a for k in gi if k < len(have) for a in _axes(have[k]))
         entry = None if not axes else axes[0] if len(axes) == 1 else axes
-        out.extend([entry] + [None] * (len(gj) - 1))
+        sizes = [dst[k] if k < len(dst) else 1 for k in gj]
+        at = next((i for i, n in enumerate(sizes) if n > 1), 0)
+        group = [None] * len(gj)
+        group[at] = entry
+        out.extend(group)
     return tuple(out[:len(dst)])
 
 
@@ -427,13 +972,17 @@ class _Shape(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, shape: Tuple[int, ...]):
         ctx.shape = x.shape
+        ctx.layout = None if _ACTIVE is None else _ACTIVE.layout(x)
         with _quiet():
             return x.new_empty(shape)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         with _quiet():
-            return g.new_empty(ctx.shape), None
+            grad = g.new_empty(ctx.shape)
+        if _ACTIVE is not None and ctx.layout is not None:
+            _ACTIVE.set_layout(grad, ctx.layout)
+        return grad, None
 
 
 _TAG = "cost_analysis.divisor"
@@ -516,6 +1065,7 @@ def one_coordinate(body: Callable[..., Sequence[torch.Tensor]],
             local = []
             for t, spec in zip(inputs, in_specs):
                 if tr is not None:
+                    tr.refine(t, spec)
                     tr.regather(t, spec)
                 piece = _Shape.apply(t, _split_shape(t.shape, spec, mesh))
                 if tr is not None and t in tr.params:
@@ -562,18 +1112,24 @@ def constrain(x: torch.Tensor, spec) -> None:
     tr.set_layout(x, spec)
 
 
-def trace(fn: Callable[[], object], mesh: Optional[PS.AbstractMesh],
-          rules, *, params: Sequence[Tuple[torch.Tensor, Tuple]] = (),
-          inputs: Sequence[Tuple[torch.Tensor, Tuple]] = (),
-          gradients: bool = False) -> Dict:
-    """Run ``fn()`` once under ``sharding_scope(mesh, rules)`` and the
-    counting dispatch mode; ``params`` are (parameter, its spec) and
-    ``inputs`` (input, its spec) pairs, whose layouts the trace starts
-    from; ``gradients`` adds each parameter's gradient sync. Returns the
-    reference's keys but ``entry`` and ``n_computations`` (see
-    :func:`analyze_cell`). Under a shape-only mesh the mapped regions run
-    one coordinate only inside this call; a ``HostMesh`` runs every
-    coordinate and is refused."""
+def recount() -> Callable[[], contextlib.AbstractContextManager]:
+    """For a checkpoint made here, a ``context_fn``-ready factory of the
+    context its recompute counts in: the scope its forward counts in now.
+    The recompute runs in the backward, outside any mapped region's or
+    ``counted_at``'s Python scope, and its ops run with grad on, so they
+    would otherwise count at the shard shapes outside the region."""
+    tr = _ACTIVE
+    if tr is None or (not tr.depth and tr.split is None):
+        return contextlib.nullcontext
+    split = None if tr.depth else tr.split
+    return lambda: _counting(None, split)
+
+
+def _run(fn: Callable[[], object], mesh: Optional[PS.AbstractMesh],
+         rules, params: Sequence[Tuple[torch.Tensor, Tuple]],
+         inputs: Sequence[Tuple[torch.Tensor, Tuple]], gradients: bool,
+         arguments: Sequence[torch.Tensor] = ()) -> Tuple[_CellTrace, object]:
+    """:func:`trace`'s run: the trace and what ``fn()`` returned."""
     global _ACTIVE
     if isinstance(mesh, PS.HostMesh):
         raise TypeError("a HostMesh runs every coordinate: trace a cell "
@@ -587,14 +1143,20 @@ def trace(fn: Callable[[], object], mesh: Optional[PS.AbstractMesh],
             tr.add_param(p, spec)
         for t, spec in inputs:
             tr.set_layout(t, spec)
+        tr.known([p for p, _ in params] + [t for t, _ in inputs]
+                 + list(arguments))
         _ACTIVE = tr
         try:
             with PS.sharding_scope(mesh, rules), tr:
-                fn()
+                result = fn()
         finally:
             _ACTIVE = None
         if gradients:
             _gradient_sync(tr, [p for p, _ in params])
+    return tr, result
+
+
+def _counts(tr: _CellTrace) -> Dict:
     acc = tr.acc
     return {
         "dot_flops_per_chip": acc.flops,
@@ -607,6 +1169,21 @@ def trace(fn: Callable[[], object], mesh: Optional[PS.AbstractMesh],
     }
 
 
+def trace(fn: Callable[[], object], mesh: Optional[PS.AbstractMesh],
+          rules, *, params: Sequence[Tuple[torch.Tensor, Tuple]] = (),
+          inputs: Sequence[Tuple[torch.Tensor, Tuple]] = (),
+          gradients: bool = False) -> Dict:
+    """Run ``fn()`` once under ``sharding_scope(mesh, rules)`` and the
+    counting dispatch mode; ``params`` are (parameter, its spec) and
+    ``inputs`` (input, its spec) pairs, whose layouts the trace starts
+    from; ``gradients`` adds each parameter's gradient sync. Returns the
+    reference's keys but ``entry`` and ``n_computations`` (see
+    :func:`analyze_cell`). Under a shape-only mesh the mapped regions run
+    one coordinate only inside this call; a ``HostMesh`` runs every
+    coordinate and is refused."""
+    return _counts(_run(fn, mesh, rules, params, inputs, gradients)[0])
+
+
 def analyze_cell(lowered) -> Dict:
     """Trace ``lowered`` (a ``steps.LoweredCell``) once, as the module
     docstring defines, and return the reference's keys
@@ -615,15 +1192,98 @@ def analyze_cell(lowered) -> Dict:
     ``collective_wire_bytes_per_chip`` /
     ``collective_payload_bytes_per_chip`` / ``collective_op_counts`` (by
     kind), ``collective_total_per_chip`` and ``num_partitions``."""
+    return analyze(lowered)[0]
+
+
+def _flat(tree) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _flat(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _flat(v)]
+    return []
+
+
+def _shard_bytes(t: torch.Tensor, sharding) -> int:
+    shape = t.shape if sharding is None else sharding.shard_shape(t.shape)
+    return math.prod(shape) * t.element_size()
+
+
+_SCALAR_I32 = 4        # the reference's int32 step counter and ``cur``
+
+
+def analyze(lowered) -> Tuple[Dict, Dict]:
+    """:func:`analyze_cell`'s counts and the cell's memory per device,
+    the reference's ``memory_analysis()`` keys:
+
+    - ``argument_bytes``: every argument the step reads at its sharding's
+      shard shape (``NamedSharding.shard_shape``), the reference's
+      ``in_shardings``: the parameters; train adds the optimizer state
+      (its step counter an int32 scalar, as the reference's) and the
+      batch, prefill the batch, decode the token, the cache and ``cur``
+      (an int32 scalar, read where attention layers are). XLA drops an
+      argument its step never reads, so the trace leaves out the tensors
+      no op read (a decode step's encoder weights);
+    - ``alias_bytes``: the donated arguments the step updates in place:
+      the parameters and the optimizer state (train), the cache (decode);
+    - ``output_bytes``: what the reference's step returns, at the layouts
+      the trace records (none: whole): train the new parameters, the
+      optimizer state and the metrics; prefill and decode the logits and
+      the cache;
+    - ``temp_bytes``: the peak over the trace of the bytes a device holds
+      of the storages the step allocates (:meth:`_CellTrace.allocated`).
+    """
     model, args = lowered.instantiate()
     shard = lowered.param_shardings
-    return trace(lambda: lowered.step(model, *args), lowered.mesh,
-                 lowered.rules,
-                 params=[(p, () if shard[n] is None else shard[n].spec)
-                         for n, p in model.named_parameters()],
-                 inputs=[(t, sh.spec) for t, sh in lowered.input_layouts()
-                         if sh is not None],
-                 gradients=lowered.kind == "train")
+    named = list(model.named_parameters())
+    kind = lowered.kind
+    inputs = [(t, sh.spec) for t, sh in lowered.input_layouts()
+              if sh is not None]
+    if kind == "train" and lowered.mesh is not None:
+        opt, osh = args[0], lowered.opt_shardings
+        inputs += [(t, getattr(osh, f)[n].spec) for f in ("master", "m", "v")
+                   for n, t in getattr(opt, f).items()]
+    tr, result = _run(lambda: lowered.step(model, *args), lowered.mesh,
+                      lowered.rules,
+                      [(p, () if shard[n] is None else shard[n].spec)
+                       for n, p in named],
+                      inputs, kind == "train", _flat(args))
+    def used(t, sharding) -> int:
+        return 0 if id(t) in tr.unread else _shard_bytes(t, sharding)
+
+    params = sum(used(p, shard[n]) for n, p in named)
+    if kind == "train":
+        opt, batch = args
+        osh = lowered.opt_shardings
+        opt_bytes = _SCALAR_I32 + sum(
+            used(t, getattr(osh, f)[n])
+            for f in ("master", "m", "v")
+            for n, t in getattr(opt, f).items())
+        inputs = sum(used(t, lowered.batch_shardings[k])
+                     for k, t in batch.items())
+        arguments, alias = params + opt_bytes + inputs, params + opt_bytes
+        outputs = alias + sum(tr.held(t, None) for t in _flat(result))
+    elif kind == "prefill":
+        arguments = params + sum(
+            used(t, lowered.batch_shardings[k]) for k, t in args[0].items())
+        alias, outputs = 0, sum(tr.held(t, None) for t in _flat(result))
+    else:
+        token, cache, _ = args
+        cache_bytes = sum(used(c[k], sh[k]) for c, sh in zip(
+            cache, lowered.batch_shardings["cache"]) for k in c)
+        # ``cur`` positions attention's keys; a model without attention
+        # layers never reads it
+        cur = _SCALAR_I32 if any("k" in c for c in cache) else 0
+        arguments = (params + cache_bytes + cur
+                     + used(token, lowered.batch_shardings["token"]))
+        alias = cache_bytes
+        outputs = sum(tr.held(t, None) for t in _flat(result))
+    memory = {"argument_bytes": int(arguments),
+              "output_bytes": int(round(outputs)),
+              "temp_bytes": int(round(tr.peak)),
+              "alias_bytes": int(alias)}
+    return _counts(tr), memory
 
 
 def _gradient_sync(tr: _CellTrace, params: Sequence[torch.Tensor]) -> None:

@@ -10,10 +10,10 @@ saw and returned to an ``.npz`` file. The alias lives and dies with that
 process: the test process never sees it.
 
     python tests/_torch_ref.py OUT.npz grid|fused|planner|legs|split|moe_ep|
-        seq_attn|seq_models|layout|cost
+        seq_attn|seq_models|layout|cost|dryrun|remat
 
 The mesh cases (``split``, ``moe_ep``, ``seq_attn``, ``seq_models``,
-``layout``, ``cost``) run the reference's sharded paths on a forced host-device count
+``layout``, ``cost``, ``dryrun``) run the reference's sharded paths on a forced host-device count
 (``run_reference(..., host_devices=n)``), set in ``XLA_FLAGS`` before the
 child imports jax.
 
@@ -1013,6 +1013,177 @@ def _child_cost(out: Dict[str, np.ndarray]) -> None:
     out["cost"] = np.array(json.dumps(res))
 
 
+DRYRUN_DEVICES = 512                   # launch/dryrun.py's forced count
+DRYRUN_REDUCED = dict(layers=2, d_model=64, vocab=256)
+# the MoE archs at 16 experts: the reference's moe.py:125 asks n_experts
+# to divide the 16-wide 'model' axis
+DRYRUN_MOE_ARCHS = ("jamba-v0.1-52b", "arctic-480b", "kimi-k2-1t-a32b")
+DRYRUN_MOE_EXPERTS = 16
+
+
+def dryrun_cells(cells_fn) -> List[tuple]:
+    """(arch, shape name, multi_pod): every cell of ``cells_fn(
+    include_skips=True)`` on 16 x 16, then ``train_4k`` and ``decode_32k``
+    of COST_ARCHS on 2 x 16 x 16."""
+    out = [(a, s.name, False) for a, s, _ in cells_fn(include_skips=True)]
+    out += [(a, s, True) for a in COST_ARCHS
+            for s in ("train_4k", "decode_32k")]
+    return out
+
+
+def dryrun_config(get_reduced, arch: str):
+    """The reduced config the dry-run tests give both packages' dry runs."""
+    kw = dict(DRYRUN_REDUCED)
+    if arch in DRYRUN_MOE_ARCHS:
+        kw["n_experts"] = DRYRUN_MOE_EXPERTS
+    return get_reduced(arch, **kw)
+
+
+def dryrun_key(arch: str, shape: str, multi_pod: bool) -> str:
+    return f"{arch}|{shape}|{'2x16x16' if multi_pod else '16x16'}"
+
+
+def _child_dryrun(out: Dict[str, np.ndarray]) -> None:
+    """The reference's own ``launch/dryrun.py`` ``main(["--arch", a,
+    "--shape", s, ("--multi-pod",) "--json", p])`` on every cell of
+    :func:`dryrun_cells`, its production meshes built with
+    ``jax.sharding.Mesh`` over the 512 forced devices and its configs
+    reduced (:func:`dryrun_config`), as JSON: one record a cell, by
+    :func:`dryrun_key`."""
+    import json
+    import tempfile
+    import jax
+    from repro.configs import cells, get_reduced
+    from repro.launch import dryrun as D
+    devs = np.array(jax.devices())
+    if devs.size != DRYRUN_DEVICES:
+        raise RuntimeError(f"{devs.size} devices, not {DRYRUN_DEVICES}")
+
+    def mesh(*, multi_pod=False):
+        sizes = (2, 16, 16) if multi_pod else (16, 16)
+        names = ("pod", "data", "model") if multi_pod else ("data", "model")
+        return jax.sharding.Mesh(devs[:int(np.prod(sizes))].reshape(sizes),
+                                 names)
+
+    D.make_production_mesh = mesh
+    D.get_config = lambda arch: dryrun_config(get_reduced, arch)
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        for arch, shape, mp in dryrun_cells(cells):
+            path = os.path.join(d, "cell.json")
+            argv = ["--arch", arch, "--shape", shape, "--json", path]
+            if D.main(argv + (["--multi-pod"] if mp else [])) != 0:
+                raise RuntimeError(f"reference dry run failed: {argv}")
+            with open(path) as f:
+                (rec,) = json.load(f)
+            res[dryrun_key(arch, shape, mp)] = rec
+    out["dryrun"] = np.array(json.dumps(res))
+
+
+REMAT_SEQS = (1024, 1536, 4096)
+REMAT_MODES = ("none", "block")
+REMAT_BATCH = 16
+
+
+def remat_key(seq: int, remat: str) -> str:
+    return f"{seq}|{remat}"
+
+
+def _child_remat(out: Dict[str, np.ndarray]) -> None:
+    """The reference's blockwise train-step dot FLOPs (``lower_cell`` +
+    ``analyze_lowered``) of reduced smollm at batch REMAT_BATCH on one
+    device, for every REMAT_SEQS length and REMAT_MODES remat, as JSON."""
+    import json
+    import jax
+    from repro.configs import ShapeConfig, get_reduced
+    from repro.configs.base import RunConfig
+    from repro.runtime import pspec, steps
+    from repro.runtime.hlo_analysis import analyze_lowered
+    cfg = get_reduced("smollm-135m", **DRYRUN_REDUCED)
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1, 1),
+                             ("pod", "data", "model"))
+    res = {}
+    for seq in REMAT_SEQS:
+        for remat in REMAT_MODES:
+            run = RunConfig(arch="smollm-135m", remat=remat,
+                            attn_impl="blockwise")
+            shape = ShapeConfig("t", seq_len=seq, global_batch=REMAT_BATCH,
+                                kind="train")
+            with pspec.sharding_scope(mesh, run.sharding):
+                lowered, _ = steps.lower_cell(cfg, run, shape)
+                hlo = analyze_lowered(lowered, lowered.compile())
+            res[remat_key(seq, remat)] = hlo["dot_flops_per_chip"]
+    out["remat"] = np.array(json.dumps(res))
+
+
+def rehearse_phase_20(chip_smoke, monkeypatch) -> None:
+    """``chip_smoke.py``'s phase 20 on the CPU at reduced size: configs
+    reduced, ``DEVICE = "cpu"``, CUDA synchronisation and events stubbed,
+    and ``card_memory`` measured on the CPU run itself: the bytes of the
+    step's arguments (the model's parameters, the optimizer state, the
+    batch) and the most the call allocates over them, as the cost trace's
+    storage tracking sees real CPU tensors."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import cost_analysis as CA
+    real = configs.get_config
+    monkeypatch.setattr(configs, "get_config", lambda a: configs.reduced(
+        real(a), layers=2, d_model=64, vocab=256))
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+
+    class Event:
+        def __init__(self, **_):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, _):
+            return 1e3
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    args: List = []
+    build, init, batch = M.build_model, adamw.adamw_init, M.make_batch
+
+    def build_model(*a, **k):
+        args.clear()
+        model = build(*a, **k)
+        args.extend(model.parameters())
+        return model
+
+    def adamw_init(params):
+        opt = init(params)
+        args.extend(t for f in ("master", "m", "v")
+                    for t in getattr(opt, f).values())
+        return opt
+
+    def make_batch(*a, **k):
+        out = batch(*a, **k)
+        args.extend(out.values())
+        return out
+
+    def card_memory(call):
+        got = {}
+
+        def run():
+            call()
+            got["peak"] = CA.active().peak
+
+        CA._run(run, None, None, (), (), False, list(args))
+        before = sum({id(t.untyped_storage()): t.untyped_storage().nbytes()
+                      for t in args}.values())
+        return before, before + got["peak"]
+
+    monkeypatch.setattr(M, "build_model", build_model)
+    monkeypatch.setattr(adamw, "adamw_init", adamw_init)
+    monkeypatch.setattr(M, "make_batch", make_batch)
+    monkeypatch.setattr(chip_smoke, "card_memory", card_memory)
+
+
 def _entry_json(e):
     return list(e) if isinstance(e, tuple) else e
 
@@ -1097,5 +1268,6 @@ if __name__ == "__main__":
      "planner": _child_planner, "legs": _child_legs,
      "split": _child_split, "moe_ep": _child_moe_ep,
      "seq_attn": _child_seq_attn, "seq_models": _child_seq_models,
-     "layout": _child_layout, "cost": _child_cost}[what](arrays)
+     "layout": _child_layout, "cost": _child_cost,
+     "dryrun": _child_dryrun, "remat": _child_remat}[what](arrays)
     np.savez(path, **arrays)

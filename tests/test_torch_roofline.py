@@ -8,8 +8,8 @@ term is the arithmetic of ``topology.py``'s figures. ``chip_smoke.py``
 reads its peaks from ``topology.py`` rather than repeating them.
 """
 import pytest
-import torch
 
+import _torch_ref as ref
 from repro.configs import SHAPES as RSHAPES
 from repro.configs import get_config as rget_config
 from repro.runtime import roofline as RR
@@ -93,27 +93,10 @@ def test_chip_smoke_phase_20_passes_on_reduced_cells(monkeypatch):
     """chip_smoke's phase 20 rehearsed on the CPU: reduced gemma3-12b's
     prefill and mamba2-370m's train step, each traced on meta tensors and
     run on real CPU tensors, whose FlopCounterMode count must equal the
-    trace's (CUDA events stubbed)."""
+    trace's (CUDA events stubbed, the card's memory measured on the CPU
+    run, ``_torch_ref.rehearse_phase_20``)."""
     import chip_smoke
-    from repro_torch import configs
-    real = configs.get_config
-    monkeypatch.setattr(configs, "get_config", lambda a: configs.reduced(
-        real(a), layers=2, d_model=64, vocab=256))
-    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    for name in ("synchronize", "empty_cache"):
-        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
-
-    class Event:
-        def __init__(self, **_):
-            pass
-
-        def record(self):
-            pass
-
-        def elapsed_time(self, _):
-            return 1e3
-
-    monkeypatch.setattr(torch.cuda, "Event", Event)
+    ref.rehearse_phase_20(chip_smoke, monkeypatch)
     got = [chip_smoke.roofline_cell("gemma3-12b", "prefill", 2, 64, "cpu"),
            chip_smoke.roofline_cell("mamba2-370m", "train", 2, 64, "cpu")]
     for r in got:
