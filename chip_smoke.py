@@ -1893,7 +1893,17 @@ def check_ssd(ssd, cfg, usage=None, batch: int = TRAIN_BATCH) -> dict:
                            f"{err}")
     x = ins[0]
     bound, by, ops = ssd_bound_ms(*x.shape, cfg.ssm.d_state, chunk)
+    # the scratch the meta trace sizes by the Python twin, against the
+    # library's own count (the wrapper checks it at every launch too; an
+    # older checkout timed by scripts/time_port_kernels.py has no twin)
+    dims = (*x.shape, cfg.ssm.d_state, chunk)
+    work = {"library": ssd._library().ssd_scan_workspace_bytes(*dims)}
+    if hasattr(ssd, "workspace_bytes"):
+        work["twin"] = ssd.workspace_bytes(*dims)
+        if work["twin"] != work["library"]:
+            raise RuntimeError(f"ssd_scan workspace: {work}")
     case = {"x": list(x.shape), "B": list(ins[3].shape), "chunk": chunk,
+            "workspace_bytes": work,
             **err, "tol_y_rel_rms": SSD_Y_REL_RMS_TOL,
             "tol_h_rel_rms": SSD_H_REL_RMS_TOL,
             "ms": median_ms(kernel), "plain_ms": median_ms(plain),
@@ -3566,11 +3576,16 @@ def seq_prefill(M, model, run, tokens, logits, flash, card: str) -> tuple:
 
 
 # phase 20: the roofline of the two unmeshed cells the card already runs,
-# traced on meta tensors (steps.lower_cell + cost_analysis.analyze_cell on
-# a one-device mesh) and run on the card, on the blockwise path the trace
-# takes (the reference's dry run lowers its jnp paths, not its kernels)
-ROOFLINE_CELLS = (("gemma3-12b", "prefill", SERVE_BATCH, PROMPT_LEN),
-                  (TRAIN_ARCH, "train", TRAIN_BATCH, TRAIN_SEQ))
+# traced on meta tensors (steps.lower_cell + cost_analysis.analyze on a
+# one-device mesh) and run on the card, each on the blockwise path and on
+# the kernel path (flash: the flash kernel in gemma3's prefill, the SSD
+# kernel's forward and the plain backward in mamba2's step), whose kernels
+# the trace counts by their rules
+ROOFLINE_CELLS = tuple(
+    (arch, kind, batch, seq, impl) for arch, kind, batch, seq in (
+        ("gemma3-12b", "prefill", SERVE_BATCH, PROMPT_LEN),
+        (TRAIN_ARCH, "train", TRAIN_BATCH, TRAIN_SEQ))
+    for impl in ("blockwise", "flash"))
 ROOFLINE_TIMED = 3             # CUDA-event timings of each step (median)
 # The card's peak over one call against the trace's arguments plus its peak
 # of live temporaries: both follow the same eager code's allocations and
@@ -3579,18 +3594,23 @@ ROOFLINE_TIMED = 3             # CUDA-event timings of each step (median)
 PEAK_RATIO_BOUNDS = (0.8, 1.25)
 
 
-def roofline_cell(arch: str, kind: str, batch: int, seq: int,
+def roofline_cell(arch: str, kind: str, batch: int, seq: int, impl: str,
                   card: str) -> dict:
-    """One cell of phase 20: its step traced on meta tensors (dot FLOPs,
-    HBM bytes, the H100 roofline), then built at full size with random
-    weights from SEED and run on the card, once under ``FlopCounterMode``
-    and ROOFLINE_TIMED times between CUDA events. Raises unless the
-    card's count equals the trace's and the measured ms are at least the
-    roofline's compute term."""
+    """One cell of phase 20 on the ``impl`` path: its step traced on meta
+    tensors (dot FLOPs, HBM bytes, the H100 roofline, each kernel's
+    calls), then built at full size with random weights from SEED and run
+    on the card, once under ``FlopCounterMode`` and ROOFLINE_TIMED times
+    between CUDA events. Raises unless the card's count equals the
+    trace's, the measured ms are at least the roofline's compute term, the
+    card's peak memory is within PEAK_RATIO_BOUNDS of the trace's and each
+    kernel launched, in the counted call, as often as the trace calls
+    it."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.runtime import pspec as PS
@@ -3598,14 +3618,16 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int,
     from repro_torch.runtime.cost_analysis import analyze
     from repro_torch.runtime.roofline import PEAK_FLOPS, roofline_report
     cfg = get_config(arch)
-    run = RunConfig(arch=arch, attn_impl="blockwise", seed=SEED)
+    run = RunConfig(arch=arch, attn_impl=impl, seed=SEED)
     shape = ShapeConfig(f"{kind}_{seq}", seq_len=seq, global_batch=batch,
                         kind=kind)
+    wrappers = {"flash_attention": fa, "ssd_scan": ssd}   # name: module
     t0 = time.perf_counter()
     with PS.sharding_scope(PS.abstract_mesh((1, 1), ("data", "model")),
                            run.sharding):
         low, _ = steps.lower_cell(cfg, run, shape)
-    hlo, mem = analyze(low)
+    calls: dict = {}
+    hlo, mem = analyze(low, calls)
     trace_s = time.perf_counter() - t0
     trace_peak = mem["argument_bytes"] + mem["temp_bytes"]
     roof = roofline_report({"hlo": hlo, "chips": 1}, cfg, shape)
@@ -3627,9 +3649,12 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int,
             return step(model, data)
     call()
     torch.cuda.synchronize()
+    for name, mod in wrappers.items():
+        getattr(mod, name).launches = 0
     with FlopCounterMode(display=False) as fc:
         call()
     torch.cuda.synchronize()
+    launches = {n: getattr(mod, n).launches for n, mod in wrappers.items()}
     card_flops = fc.get_total_flops()
     card_args, card_peak = card_memory(call)
     times = []
@@ -3645,6 +3670,7 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int,
     torch.cuda.empty_cache()
     res = {"arch": arch, "kind": kind, "batch": batch, "seq": seq,
            "attn_impl": run.attn_impl, "trace_s": trace_s,
+           "trace_kernel_calls": calls, "launches": launches,
            "dot_flops_per_chip": hlo["dot_flops_per_chip"],
            "card_flops": card_flops,
            "mem_bytes_per_chip": hlo["mem_bytes_per_chip"],
@@ -3652,6 +3678,8 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int,
            "t_memory_ms": 1e3 * roof["t_memory_s"],
            "bound": roof["bound"], "measured_ms": ms, "timed_ms": times,
            "roofline_fraction": roof["roofline_fraction"],
+           "measured_roofline_fraction": max(
+               roof["t_compute_s"], roof["t_memory_s"]) * 1e3 / ms,
            "measured_model_flops_share": (
                roof["model_flops_global"] / (ms / 1e3) / PEAK_FLOPS),
            "useful_flops_ratio": roof["useful_flops_ratio"],
@@ -3659,6 +3687,10 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int,
            "card_allocated_bytes": card_args, "card_peak_bytes": card_peak,
            "peak_ratio": card_peak / trace_peak, "card": card}
     emit({"roofline_cell": res})
+    print(f"roofline {arch} {kind} {impl}: {ms:.2f} ms measured, "
+          f"{max(res['t_compute_ms'], res['t_memory_ms']):.2f} ms bound by "
+          f"{res['bound']}, fraction {res['measured_roofline_fraction']:.3f}",
+          flush=True)
     if card_flops != hlo["dot_flops_per_chip"]:
         raise RuntimeError(f"{arch} {kind}: the card ran {card_flops} dot "
                            f"FLOPs, the meta trace counts "
@@ -3671,6 +3703,9 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int,
         raise RuntimeError(f"{arch} {kind}: the card's peak {card_peak} B "
                            f"is {res['peak_ratio']} of the trace's "
                            f"{trace_peak} B, outside [{lo}, {hi}]")
+    if any(launches[n] != calls.get(n, 0) for n in wrappers):
+        raise RuntimeError(f"{arch} {kind} {impl}: the card launched "
+                           f"{launches}, the trace calls {calls}")
     return res
 
 
@@ -3691,12 +3726,27 @@ def roofline_phase(card: str) -> list:
     return [roofline_cell(*c, card) for c in ROOFLINE_CELLS]
 
 
+def roofline_paths(cells: list) -> tuple:
+    """Each kernel's launches in phase 20's counted calls, by cell, for
+    the ``kernels`` line: (flash, SSD)."""
+    paths = ({}, {})
+    for r in cells:
+        for got, name in zip(paths, ("flash_attention", "ssd_scan")):
+            if r["launches"][name]:
+                got[f"20 roofline {r['arch']} {r['kind']}"] = \
+                    r["launches"][name]
+    return paths
+
+
 # phase 21: the dry run (python -m repro_torch.launch.dryrun) at full size
 # over both production meshes on the card's host: kimi-k2's train_4k, the
-# heaviest trace, and mamba2-370m's long_500k, a batch of one; each JSON
-# rendered by scripts/roofline_table.py for both meshes
-DRYRUN_CELLS = (("kimi-k2-1t-a32b", "train_4k"),
-                ("mamba2-370m", "long_500k"))
+# heaviest trace, mamba2-370m's long_500k, a batch of one, and
+# mamba2-370m's train_4k on the kernel path (--attn-impl flash: the SSD
+# kernel counted by its rule), one process a cell and mesh, all at once;
+# each JSON rendered by scripts/roofline_table.py
+DRYRUN_CELLS = (("kimi-k2-1t-a32b", "train_4k", "blockwise"),
+                ("mamba2-370m", "long_500k", "blockwise"),
+                ("mamba2-370m", "train_4k", "flash"))
 DRYRUN_MESHES = ("16x16", "2x16x16")
 DRYRUN_KEYS = ("arch", "shape", "kind", "mesh", "chips", "lower_s",
                "compile_s", "memory", "cost_analysis", "hlo", "roofline")
@@ -3706,36 +3756,42 @@ DRYRUN_TIMEOUT = 600
 
 
 def dryrun_phase(out_dir: Path, python: str = sys.executable) -> list:
-    """Phase 21: the dry run of each of DRYRUN_CELLS on both meshes in a
-    subprocess (exit 0, one record a mesh with every key of the
-    reference's), then ``scripts/roofline_table.py`` on its JSON for each
-    mesh (exit 0, one row). Raises on any failure."""
+    """Phase 21: the dry run of each of DRYRUN_CELLS (arch, shape,
+    attention path) on each mesh, one subprocess each, all started
+    together (exit 0, one record with every key of the reference's), then
+    ``scripts/roofline_table.py`` on each JSON (exit 0, one row). Raises on
+    any failure, and stops every process it started first."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    recs = []
-    for arch, shape in DRYRUN_CELLS:
-        path = out_dir / f"dryrun_{arch}_{shape}.json"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [python, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-             "--shape", shape, "--both-meshes", "--json", str(path)],
-            env=env, cwd=str(REPO), capture_output=True, text=True,
-            timeout=DRYRUN_TIMEOUT)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"dry run {arch} {shape} exited "
-                               f"{proc.returncode}:\n{proc.stdout[-2000:]}"
-                               f"{proc.stderr[-4000:]}")
-        got = json.loads(path.read_text())
-        if sorted(r.get("mesh") for r in got) != sorted(DRYRUN_MESHES):
-            raise RuntimeError(f"dry run {arch} {shape}: meshes "
-                               f"{[r.get('mesh') for r in got]}")
-        for r in got:
+    runs = []
+    try:
+        for arch, shape, impl in DRYRUN_CELLS:
+            for mesh in DRYRUN_MESHES:
+                path = out_dir / f"dryrun_{arch}_{shape}_{impl}_{mesh}.json"
+                argv = [python, "-m", "repro_torch.launch.dryrun", "--arch",
+                        arch, "--shape", shape, "--attn-impl", impl,
+                        "--json", str(path)]
+                if mesh == "2x16x16":
+                    argv.append("--multi-pod")
+                runs.append((arch, shape, impl, mesh, path,
+                             time.perf_counter(), subprocess.Popen(
+                                 argv, env=env, cwd=str(REPO), text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)))
+        recs = []
+        for arch, shape, impl, mesh, path, t0, proc in runs:
+            out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"dry run {arch} {shape} {impl} {mesh} "
+                                   f"exited {proc.returncode}:\n"
+                                   f"{out[-2000:]}{err[-4000:]}")
+            (r,) = json.loads(path.read_text())
             missing = [k for k in DRYRUN_KEYS if k not in r] + [
                 k for k in DRYRUN_MEMORY if k not in r.get("memory", {})]
-            if missing:
-                raise RuntimeError(f"dry run {arch} {shape} {r['mesh']}: "
-                                   f"no {missing} in {sorted(r)}")
-        for mesh in DRYRUN_MESHES:
+            if r.get("mesh") != mesh or missing:
+                raise RuntimeError(f"dry run {arch} {shape} {impl} {mesh}: "
+                                   f"mesh {r.get('mesh')}, no {missing} in "
+                                   f"{sorted(r)}")
             table = subprocess.run(
                 [python, str(REPO / "scripts" / "roofline_table.py"),
                  str(path), mesh], capture_output=True, text=True,
@@ -3747,16 +3803,20 @@ def dryrun_phase(out_dir: Path, python: str = sys.executable) -> list:
                                    f"{table.returncode}, {len(rows)} rows:"
                                    f"\n{table.stdout}{table.stderr}")
             print(rows[0], flush=True)
-        for r in got:
             rf = r["roofline"]
             emit({"dryrun_cell": {
-                "arch": arch, "shape": shape, "mesh": r["mesh"],
-                "kind": r["kind"], "bound": rf["bound"],
+                "arch": arch, "shape": shape, "attn_impl": impl,
+                "mesh": mesh, "kind": r["kind"], "bound": rf["bound"],
                 **{k: rf[k] for k in ("t_compute_s", "t_memory_s",
                                       "t_collective_s")},
                 "memory": r["memory"], "lower_s": r["lower_s"],
                 "trace_s": r["compile_s"], "process_s": wall}})
-        recs.extend(got)
+            recs.append(r)
+    finally:
+        for run in runs:
+            if run[-1].poll() is None:
+                run[-1].kill()
+                run[-1].wait()
     return recs
 
 
@@ -4042,8 +4102,11 @@ def main() -> int:
                  clock, flash_cases, flash_paths, ssd_cases, ssd_paths)
 
     # 20. the roofline: gemma3-12b's served prefill and mamba2-370m's train
-    # step traced on meta tensors and run on the card, their dot FLOPs equal
-    roofline_phase(gpu_line())
+    # step traced on meta tensors and run on the card, blockwise and on the
+    # kernel path, their dot FLOPs and kernel launches equal
+    flash_roof, ssd_roof = roofline_paths(roofline_phase(gpu_line()))
+    flash_paths.update(flash_roof)
+    ssd_paths.update(ssd_roof)
     clock.mark("20 roofline")
 
     # 21. the dry run over both production meshes: kimi-k2's train_4k and

@@ -3,7 +3,7 @@
 checkout of the port.
 
     python3 scripts/time_port_kernels.py [--src DIR] [--label NAME]
-                                         [--arms planner,flash,ssd]
+                                         [--arms planner,flash,ssd,steps]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's
 ``src``), builds the kernels of the chosen arms, holds each against its
@@ -11,7 +11,10 @@ plain version and times it with ``chip_smoke.py``'s own checks: the
 planner's ``rate_prefix`` and ``sweep`` on the first and the last chunk of
 a 4096-job ``planner_scale`` window, and every launch of one such window;
 flash attention at gemma3-12b's prefill shapes (global, window 1024 and
-ragged); the SSD scan at mamba2-370m's training shapes. Prints one JSON
+ragged); the SSD scan at mamba2-370m's training shapes; with ``steps``,
+gemma3-12b's prefill and mamba2-370m's train step on the kernel path at
+full size (CUDA-event ms) and the host time of one wrapper call at a
+small shape (what the dispatch to a kernel costs). Prints one JSON
 line per check, the device time of one call of each by kernel name
 (``torch.profiler``; for the planner also the mean of 20 back-to-back
 calls) and a summary line. Pointing ``--src`` at an unpacked earlier
@@ -133,24 +136,101 @@ def planner_arm(cs, built) -> dict:
     return out
 
 
+STEPS_TIMED = 5
+HOST_CALLS = 200
+
+
+def step_ms(cs, arch: str, kind: str, batch: int, seq: int) -> dict:
+    """CUDA-event ms of one step of ``arch`` on the kernel path at full
+    size, random weights from SEED (median of STEPS_TIMED after a warm
+    call)."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime import steps
+    cfg = get_config(arch)
+    run = RunConfig(arch=arch, attn_impl="flash", seed=cs.SEED)
+    shape = ShapeConfig(f"{kind}_{seq}", seq_len=seq, global_batch=batch,
+                        kind=kind)
+    model = M.build_model(cfg, seed=cs.SEED, device="cuda")
+    data = {k: v.cuda() for k, v in M.make_batch(
+        cfg, shape, torch.Generator().manual_seed(cs.SEED)).items()}
+    if kind == "train":
+        model.requires_grad_(True)
+        opt = adamw_init(dict(model.named_parameters()))
+        step = steps.make_train_step(cfg, run)
+
+        def call():
+            return step(model, opt, data)
+    else:
+        step = steps.make_prefill_step(cfg, run, s_max=seq)
+
+        def call():
+            return step(model, data)
+    call()
+    times = []
+    for _ in range(STEPS_TIMED):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        call()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    del model, data, step
+    torch.cuda.empty_cache()
+    return {"arch": arch, "kind": kind, "batch": batch, "seq": seq,
+            "ms": statistics.median(times), "timed_ms": times}
+
+
+def host_us(fa, ssd) -> dict:
+    """Host microseconds a call of each wrapper takes to return, the mean
+    of HOST_CALLS back-to-back calls at a small shape whose kernels take
+    less device time than that."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+    q = torch.randn(1, 128, 2, 64, generator=gen, **bf16)
+    x = torch.randn(1, 256, 2, 64, generator=gen, **bf16)
+    dt = torch.rand(1, 256, 2, generator=gen, device="cuda")
+    a = -torch.ones(2, device="cuda")
+    bc = torch.randn(1, 256, 1, 128, generator=gen, **bf16)
+    out = {}
+    for name, fn in (("flash_attention", lambda: fa.flash_attention(q, q, q)),
+                     ("ssd_scan", lambda: ssd.ssd_scan(x, dt, a, bc, bc))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out[name] = 1e6 * host / HOST_CALLS
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(REPO / "src"))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--arms", default="planner,flash,ssd",
-                    help="comma-separated: planner, flash, ssd")
+                    help="comma-separated: planner, flash, ssd, steps")
     args = ap.parse_args()
     arms = set(args.arms.split(","))
-    if not arms <= {"planner", "flash", "ssd"}:
+    if not arms <= {"planner", "flash", "ssd", "steps"}:
         ap.error(f"unknown arms: {sorted(arms)}")
     if not torch.cuda.is_available():
         print("time_port_kernels: no CUDA device is visible", file=sys.stderr)
         return 2
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
+    # before chip_smoke, which puts this checkout's src first and imports
+    # repro_torch from there
+    import repro_torch
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
-    import repro_torch
     if Path(repro_torch.__file__).resolve().parents[1] != src:
         raise RuntimeError(f"repro_torch came from {repro_torch.__file__}, "
                            f"not from {src}")
@@ -162,10 +242,11 @@ def main() -> int:
 
     card = cs.gpu_line()
     print(card, flush=True)
-    sources = {"planner": grid_cuda._SOURCE, "flash": fa._SOURCE,
-               "ssd": ssd._SOURCE}
+    sources = {"planner": [grid_cuda._SOURCE], "flash": [fa._SOURCE],
+               "ssd": [ssd._SOURCE], "steps": [fa._SOURCE, ssd._SOURCE]}
     t0 = time.perf_counter()
-    built = build(*(sources[a] for a in sorted(arms)))
+    built = build(*dict.fromkeys(src for a in sorted(arms)
+                                 for src in sources[a]))
     build_s = time.perf_counter() - t0
     for _, log in built.values():
         for line in log.splitlines():
@@ -195,6 +276,13 @@ def main() -> int:
         cs.emit({"device_ms_by_kernel": device_split(
             arms, fa, ssd, get_config(cs.ARCH), get_config(cs.TRAIN_ARCH),
             cs)})
+    if "steps" in arms:
+        summary["host_us_per_call"] = host_us(fa, ssd)
+        summary["steps_ms"] = [
+            step_ms(cs, "gemma3-12b", "prefill", cs.SERVE_BATCH,
+                    cs.PROMPT_LEN),
+            step_ms(cs, cs.TRAIN_ARCH, "train", cs.TRAIN_BATCH,
+                    cs.TRAIN_SEQ)]
     cs.emit(summary)
     return 0
 

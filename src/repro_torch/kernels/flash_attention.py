@@ -22,23 +22,30 @@ visiting only the kv tiles the causal band and the window reach; the
 source says more. TMA needs 16-byte aligned rows, which the checks below
 ask for.
 
-:func:`flash_attention` takes the plain version only for CPU tensors; on
-CUDA tensors it launches the kernel or raises. ``flash_attention.launches``
-counts kernel launches.
+:func:`flash_attention` calls the custom op ``repro_torch::flash_fwd``:
+on CPU tensors its plain version, on CUDA tensors the kernel (or it
+raises), on meta tensors an output of the kernel's shape and nothing
+computed, so a meta trace (``runtime/cost_analysis.py``) and the card's
+``FlopCounterMode`` count the kernel by :func:`flash_cost`, the rule
+registered as the op's FLOP formula. Any other device raises.
+``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch._build import KernelSource, load
 from repro_torch.kernels.ref import flash_attention_ref
 
 _SOURCE = KernelSource("flash_attention")
 MAX_HEAD_DIM = 256                  # kMaxD in the source
+# the reference's block_q = block_kv (its ops.py pads T and S to them)
+COUNT_BLOCK = 128
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -87,32 +94,34 @@ def _check_kernel_input(name: str, x: torch.Tensor,
                          f"16-byte aligned rows; got strides {x.stride()}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Self-attention over positions ``0..T-1`` (queries) and ``0..S-1``
-    (keys): q ``[B, T, Hq, d]``, k/v ``[B, S, Hkv, d]`` -> ``[B, T, Hq,
-    d]`` in q's dtype. ``causal`` keeps keys ``k <= q``; ``window`` keeps
-    ``q - k < window``.
+def flash_cost(q_shape, k_shape, itemsize: int = 2) -> Tuple[int, int]:
+    """The flash kernel's count rule: (dot FLOPs, HBM bytes) of one call
+    on q ``[B, T, Hq, d]`` and k/v ``[B, S, Hkv, d]`` of ``itemsize``
+    bytes an element.
 
-    On CUDA the kernel takes bf16 with ``d % 16 == 0`` and ``d <=``
-    :data:`MAX_HEAD_DIM`, any strides whose rows are 16-byte aligned.
-    """
+    FLOPs are those of the reference's Pallas grid as its compiled count
+    sees them in interpret mode: ``(B * Hq, ceil(T / 128), ceil(S /
+    128))`` points over the lengths padded to 128, each the two products
+    of a 128 x 128 block, ``2 * 2 * 128 * 128 * d``, including the blocks
+    that ``pl.when`` skips (the interpreter's conditional counts once a
+    trip). The Hopper kernel does less: it visits only the kv tiles the
+    causal band and the window reach, and pads nothing. Bytes: q, k and v
+    read once, o written once."""
+    B, T, Hq, d = q_shape
+    S, Hkv = k_shape[1], k_shape[2]
+    tq = -(-T // COUNT_BLOCK) * COUNT_BLOCK
+    tk = -(-S // COUNT_BLOCK) * COUNT_BLOCK
+    flops = 2 * 2 * B * Hq * tq * tk * d
+    return flops, itemsize * (2 * B * T * Hq * d + 2 * B * S * Hkv * d)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The kernel on CUDA tensors, or ``ValueError`` for what it does not
+    take."""
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    if k.shape != (B, S, Hkv, d) or v.shape != k.shape:
-        raise ValueError(f"k and v must be [B, S, Hkv, {d}] like each other;"
-                         f" got {tuple(k.shape)} and {tuple(v.shape)}")
-    if Hkv == 0 or Hq % Hkv:
-        raise ValueError(f"{Hq} query heads do not group over {Hkv} kv "
-                         f"heads")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1 or None, got {window}")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
     if d % 16 or d > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernel takes head_dim a multiple of 16 "
                          f"up to {MAX_HEAD_DIM}, got {d}")
@@ -134,6 +143,54 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"({err})")
     flash_attention.launches += 1
     return o
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The op :func:`flash_attention` calls: the plain version on the
+    CPU, the kernel on CUDA."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _launch(q, k, v, causal, window)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, window):
+    # what _launch allocates: o, nothing computed
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    return flash_cost(q_shape, k_shape)[0]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Self-attention over positions ``0..T-1`` (queries) and ``0..S-1``
+    (keys): q ``[B, T, Hq, d]``, k/v ``[B, S, Hkv, d]`` -> ``[B, T, Hq,
+    d]`` in q's dtype. ``causal`` keeps keys ``k <= q``; ``window`` keeps
+    ``q - k < window``.
+
+    On CUDA the kernel takes bf16 with ``d % 16 == 0`` and ``d <=``
+    :data:`MAX_HEAD_DIM`, any strides whose rows are 16-byte aligned.
+    """
+    B, T, Hq, d = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, S, Hkv, d) or v.shape != k.shape:
+        raise ValueError(f"k and v must be [B, S, Hkv, {d}] like each other;"
+                         f" got {tuple(k.shape)} and {tuple(v.shape)}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} kv "
+                         f"heads")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
+                         f"{q.device}")
+    return torch.ops.repro_torch.flash_fwd(q, k, v, causal, window)
 
 
 flash_attention.launches = 0

@@ -24,17 +24,23 @@ the outputs), with every product on the tensor cores and each computed
 f32 operand split into a bf16 high part and remainder; a call launches
 the four kernels in order and counts one launch.
 
-:func:`ssd_scan` takes the plain version only for CPU tensors; on CUDA
-tensors it launches the kernels or raises. ``ssd_scan.launches`` counts
-calls that launched them (one per call, for the four passes).
+:func:`ssd_scan` calls the custom op ``repro_torch::ssd_scan_fwd``: on
+CPU tensors its plain version, on CUDA tensors the kernels (or it
+raises), on meta tensors outputs and scratch of the kernels' shapes and
+nothing computed, so a meta trace (``runtime/cost_analysis.py``) and the
+card's ``FlopCounterMode`` count the scan by :func:`ssd_cost`, the rule
+registered as the op's FLOP formula. Any other device raises.
+``ssd_scan.launches`` counts calls that launched the kernels (one per
+call, for the four passes).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch._build import KernelSource, load
 
@@ -151,6 +157,117 @@ def _check_kernel_input(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"{t.stride()}")
 
 
+def ssd_cost(x_shape, n_state: int, chunk: int, itemsize: int = 2
+             ) -> Tuple[int, int]:
+    """The SSD kernel's count rule: (dot FLOPs, HBM bytes) of one call on
+    x ``[B, S, nh, hd]`` of ``itemsize`` bytes an element (B and C the
+    same, dt and A f32) with d_state ``n_state``.
+
+    FLOPs are those of the reference's Pallas grid ``(B, nh, S /
+    chunk)``: per point the four products of its ``_kernel``, C Bᵀ
+    ``2 Q² N``, its masked product with x ``2 Q² hd``, the inter-chunk
+    output ``2 Q N hd`` and the state update ``2 hd Q N``. The Hopper
+    kernel does less: C Bᵀ once per chunk for all heads, its upper
+    triangle skipped. Bytes: x, dt, A, B and C read once, y and the f32
+    final state written once (the scratch buffer is not counted)."""
+    bsz, s, nh, hd = x_shape
+    q, n = chunk, n_state
+    flops = bsz * nh * (s // q) * (2 * q * q * n + 2 * q * q * hd
+                                   + 4 * q * n * hd)
+    tokens = bsz * s
+    nbytes = (itemsize * (2 * tokens * nh * hd + 2 * tokens * n)
+              + 4 * (tokens * nh + nh + bsz * nh * hd * n))
+    return flops, nbytes
+
+
+def _align256(v: int) -> int:
+    return (v + 255) & ~255
+
+
+def workspace_bytes(bsz: int, s: int, nh: int, hd: int, n: int,
+                    chunk: int) -> int:
+    """Scratch bytes one call needs: ``ssd_scan_workspace_bytes`` of
+    ``csrc/ssd_scan.cu`` (C Bᵀ per chunk, cs per head, the chunk states),
+    in Python so that a meta trace sizes it without the built library."""
+    chunks = bsz * (s // chunk)
+    cs = _align256(4 * chunks * chunk * chunk)
+    states = _align256(cs + 4 * bsz * nh * s)
+    return states + 4 * chunks * nh * hd * n
+
+
+def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+            ) -> List[torch.Tensor]:
+    """The kernels on CUDA tensors -> [y, h, work], or ``ValueError`` for
+    what they do not take."""
+    bsz, s, nh, hd = x.shape
+    dev = x.device
+    n = Bm.shape[3]
+    if chunk % 64 or chunk > MAX_CHUNK or hd % 16 or hd > MAX_HEAD_DIM \
+            or n % 16 or n > MAX_STATE:
+        raise ValueError(f"the SSD kernel takes chunk % 64 == 0 up to "
+                         f"{MAX_CHUNK}, head_dim % 16 == 0 up to "
+                         f"{MAX_HEAD_DIM} and d_state % 16 == 0 up to "
+                         f"{MAX_STATE}; got {chunk}, {hd}, {n}")
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        _check_kernel_input(name, t, torch.bfloat16, dev, aligned=True)
+    for name, t in (("dt", dt), ("A", A)):
+        _check_kernel_input(name, t, torch.float32, dev, aligned=False)
+    A = A.contiguous()
+    y = torch.empty((bsz, s, nh, hd), dtype=x.dtype, device=dev)
+    h = torch.empty((bsz, nh, hd, n), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return [y, h.zero_(), torch.empty(0, dtype=torch.uint8, device=dev)]
+    with torch.cuda.device(dev):
+        lib = _library()
+        # C B^T per chunk, cs per head and the chunk states (csrc says more)
+        size = workspace_bytes(bsz, s, nh, hd, n, chunk)
+        if lib.ssd_scan_workspace_bytes(bsz, s, nh, hd, n, chunk) != size:
+            raise RuntimeError("ssd_scan.cu and workspace_bytes disagree on "
+                               "the scratch bytes")
+        work = torch.empty(size, dtype=torch.uint8, device=dev)
+        err = lib.ssd_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), h.data_ptr(), work.data_ptr(), bsz,
+            s, nh, hd, n, chunk, *x.stride()[:3], *dt.stride(),
+            *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.ssd_scan_error_string(err).decode()
+        raise RuntimeError(f"ssd_scan kernel launch failed: {msg} ({err})")
+    ssd_scan.launches += 1
+    return [y, h, work]
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
+def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                 ) -> List[torch.Tensor]:
+    """The op :func:`ssd_scan` calls -> [y, h, work]: the plain version on
+    the CPU (no scratch: ``work`` is empty), the kernels on CUDA."""
+    if x.device.type == "cpu":
+        y, h = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+        return [y, h, torch.empty(0, dtype=torch.uint8)]
+    return _launch(x, dt, A, Bm, Cm, chunk)
+
+
+@ssd_scan_fwd.register_fake
+def _ssd_scan_fwd_fake(x, dt, A, Bm, Cm, chunk):
+    # what _launch allocates: y, h and the scratch, nothing computed
+    bsz, s, nh, hd = x.shape
+    n = Bm.shape[3]
+    size = workspace_bytes(bsz, s, nh, hd, n, chunk) if x.numel() else 0
+    return [x.new_empty(x.shape), x.new_empty((bsz, nh, hd, n),
+                                              dtype=torch.float32),
+            x.new_empty(size, dtype=torch.uint8)]
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd)
+def _ssd_flops(x_shape, dt_shape, a_shape, bm_shape, cm_shape, chunk,
+               *args, **kwargs) -> int:
+    return ssd_cost(x_shape, bm_shape[3], chunk)[0]
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 256
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -177,43 +294,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{tuple(dt.shape)} and {tuple(A.shape)}")
     if chunk < 1 or s % chunk:
         raise ValueError(f"seq {s} is not divisible by chunk {chunk}")
-    if x.device.type == "cpu":
-        return ssd_chunked(x, dt, A, Bm, Cm, chunk)
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cuda or cpu, not {dev}")
-    n = Bm.shape[3]
-    if chunk % 64 or chunk > MAX_CHUNK or hd % 16 or hd > MAX_HEAD_DIM \
-            or n % 16 or n > MAX_STATE:
-        raise ValueError(f"the SSD kernel takes chunk % 64 == 0 up to "
-                         f"{MAX_CHUNK}, head_dim % 16 == 0 up to "
-                         f"{MAX_HEAD_DIM} and d_state % 16 == 0 up to "
-                         f"{MAX_STATE}; got {chunk}, {hd}, {n}")
-    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
-        _check_kernel_input(name, t, torch.bfloat16, dev, aligned=True)
-    for name, t in (("dt", dt), ("A", A)):
-        _check_kernel_input(name, t, torch.float32, dev, aligned=False)
-    A = A.contiguous()
-    y = torch.empty((bsz, s, nh, hd), dtype=x.dtype, device=dev)
-    h = torch.empty((bsz, nh, hd, n), dtype=torch.float32, device=dev)
-    if y.numel() == 0:
-        return y, h.zero_()
-    with torch.cuda.device(dev):
-        lib = _library()
-        # C B^T per chunk, cs per head and the chunk states (csrc says more)
-        work = torch.empty(lib.ssd_scan_workspace_bytes(bsz, s, nh, hd, n,
-                                                        chunk),
-                           dtype=torch.uint8, device=dev)
-        err = lib.ssd_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), h.data_ptr(), work.data_ptr(), bsz,
-            s, nh, hd, n, chunk, *x.stride()[:3], *dt.stride(),
-            *Bm.stride()[:2], *Cm.stride()[:2], *y.stride()[:3],
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        msg = lib.ssd_scan_error_string(err).decode()
-        raise RuntimeError(f"ssd_scan kernel launch failed: {msg} ({err})")
-    ssd_scan.launches += 1
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"ssd_scan runs on cuda, cpu or meta, not "
+                         f"{x.device}")
+    y, h, _ = torch.ops.repro_torch.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk)
     return y, h
 
 

@@ -29,12 +29,15 @@ Each record has the reference's keys:
 
 A skipped cell is ``{"arch", "shape", "mesh", "skipped"}``, one that
 raises ``{"arch", "shape", "mesh", "error"}`` (``main`` then prints the
-failures and returns 1). Under ``--attn-impl flash`` a cell whose path
-reaches a kernel (the SSD scan, a non-causal encoder's attention) is such
-an error: a kernel's wrapper runs on a card or the CPU, never on meta
-tensors, so a trace does not count its work. Sequence-parallel attention
-goes blockwise there, as the reference's ``pallas`` does, and decode
-attends naively, so those cells trace as they do without the flag.
+failures and returns 1). Under ``--attn-impl flash`` (the kernel path the
+port serves and trains, the reference's ``pallas``) a cell whose path
+reaches a kernel (the SSD scan, a non-causal encoder's attention) traces
+the kernel's custom op on meta tensors, which allocates what the card's
+wrapper allocates and computes nothing; the trace counts its work by the
+rule beside the kernel (``flash_cost``, ``ssd_cost``) and its backward as
+the plain recompute it is. Sequence-parallel attention goes blockwise
+there, as the reference's ``pallas`` does, and decode attends naively,
+so those cells trace as they do without the flag.
 
 ``run_cell`` looks ``get_config``, ``get_shape`` and
 ``make_production_mesh`` up as module globals at call time.

@@ -59,6 +59,18 @@ layout is the region's (tokens over the batch axes, whole over 'model'),
 so they are counted at that layout (:func:`counted_at`): divided by the
 token split and by the split of their 'ffn' dimension.
 
+**The hand-written kernels** (``repro_torch::flash_fwd``,
+``repro_torch::ssd_scan_fwd``: the ``flash`` path's attention and SSD
+scan, the reference's ``pallas``) run on meta tensors as their fake
+implementations, which allocate what the CUDA wrappers allocate and
+compute nothing. Each counts by the rule beside its kernel
+(``flash_cost``, ``ssd_cost``: the reference's Pallas grid for the FLOPs,
+each input read and each output written once for the bytes), at the share
+of its first output, whose layout is its lead input's (q, x): the kernel
+splits as the batch and heads it is given. The SSD scan's scratch is live
+memory at ``workspace_bytes`` of the lead input's shard shape, not bytes
+moved. :func:`analyze` can also return the calls of each kernel.
+
 **mem_bytes_per_chip** = the operand and output bytes of each op that
 materializes (views and allocations count nothing), per device by the
 same rule. Eager torch fuses nothing, so this is an upper bound above the
@@ -114,6 +126,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.runtime import pspec as PS
 
 aten = torch.ops.aten
@@ -136,6 +150,55 @@ _SPLITS = {aten.split, aten.split_with_sizes, aten.chunk, aten.unbind,
 _REDUCTIONS = {aten.sum, aten.mean, aten.amax, aten.amin, aten.max,
                aten.min, aten.logsumexp, aten.argmax, aten.argmin,
                aten.prod, aten.var, aten.std, aten.any, aten.all}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Kernel:
+    """A hand-written kernel's op as the trace counts it: ``cost(args)``
+    its (FLOPs, bytes) by the rule beside the kernel, ``outs(lead)`` its
+    outputs' layouts from its lead input's (None: whole), ``ins(i, spec,
+    shapes)`` the layouts that output ``i`` in ``spec`` implies for its
+    inputs, ``scratch(args, lead_shape)`` the bytes of outputs that are
+    scratch, by index, at the lead input's (shard) shape."""
+    name: str
+    cost: Callable
+    outs: Callable
+    ins: Callable
+    scratch: Callable = lambda args, lead: {}
+
+
+def _flash_ins(i: int, spec: Tuple, shapes) -> List[Tuple]:
+    # q as o; k and v by batch, and by heads where they are q's heads
+    kv = (spec[0], None, spec[2] if shapes[1][2] == shapes[0][2] else None,
+          None)
+    return [tuple(spec), kv, kv]
+
+
+def _ssd_ins(i: int, spec: Tuple, shapes) -> List[Tuple]:
+    if i == 2:                                   # the scratch
+        return []
+    if i == 1:                                   # h [B, nh, hd, N]
+        spec = (spec[0], None, spec[1], spec[2])
+    bc = (spec[0], spec[1], None, None)
+    return [tuple(spec), tuple(spec[:3]), (spec[2],), bc, bc]
+
+
+_KERNELS = {
+    torch.ops.repro_torch.flash_fwd.default: _Kernel(
+        "flash_attention",
+        cost=lambda a: _fa.flash_cost(a[0].shape, a[1].shape,
+                                      a[0].element_size()),
+        outs=lambda lead: [lead],
+        ins=_flash_ins),
+    torch.ops.repro_torch.ssd_scan_fwd.default: _Kernel(
+        "ssd_scan",
+        cost=lambda a: _ssd.ssd_cost(a[0].shape, a[3].shape[3], a[5],
+                                     a[0].element_size()),
+        outs=lambda lead: [lead, (lead[0], lead[2], lead[3], None), None],
+        ins=_ssd_ins,
+        scratch=lambda a, lead: {2: _ssd.workspace_bytes(
+            *lead, a[3].shape[3], a[5]) if math.prod(lead) else 0}),
+}
 
 
 def wire_bytes(kind: str, payload: float, group: int) -> float:
@@ -165,10 +228,14 @@ class _Acc:
         default_factory=lambda: defaultdict(float))
     counts: Dict[str, int] = dataclasses.field(
         default_factory=lambda: defaultdict(int))
+    kernels: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: defaultdict(int))
 
     def add(self, other: "_Acc") -> None:
         self.flops += other.flops
         self.bytes += other.bytes
+        for k, n in other.kernels.items():
+            self.kernels[k] += n
         for k in other.counts:
             self.wire[k] += other.wire[k]
             self.payload[k] += other.payload[k]
@@ -277,21 +344,24 @@ class _CellTrace(TorchDispatchMode):
                 if isinstance(t, torch.Tensor):
                     self.unread.pop(id(t), None)
 
-    def allocated(self, outs, div: Optional[float]) -> None:
+    def allocated(self, outs, div: Optional[float],
+                  fixed: Optional[Dict[int, float]] = None) -> None:
         """Each new storage among ``outs`` is live on a device from here
         until the storage itself dies: not when its last Python tensor
         does, since autograd's saved tensors keep storages alive past
         them. Its bytes there are :meth:`held`'s, by the layout its tensor
         ends the trace with (a later consumer can refine it), so they are
-        summed in :attr:`live` and :attr:`peak` only when read."""
-        for o in outs:
+        summed in :attr:`live` and :attr:`peak` only when read; or
+        ``fixed[i]`` for the ``i``-th of ``outs`` (a kernel's scratch)."""
+        for i, o in enumerate(outs):
             if not isinstance(o, torch.Tensor):
                 continue
             st = o.untyped_storage()
             if id(st) in self.storages or st.nbytes() == 0:
                 continue
             key = id(st)
-            size = (st.nbytes() / div if div is not None
+            size = (fixed[i] if fixed and i in fixed
+                    else st.nbytes() / div if div is not None
                     else (st.nbytes(), _node_of(self, o)))
             self.storages[key] = weakref.ref(
                 st, lambda _, key=key: self.freed(key))
@@ -361,6 +431,12 @@ class _CellTrace(TorchDispatchMode):
                 frac *= -(-n // k) / n
         return frac
 
+    def shard_shape(self, t: torch.Tensor) -> List[int]:
+        """``t``'s shape on one device in its layout (ceil, as
+        :meth:`share`)."""
+        spec = self.layout(t) or (None,) * t.dim()
+        return [-(-n // self.size(_axes(e))) for n, e in zip(t.shape, spec)]
+
     def held(self, t: torch.Tensor, div: Optional[float]) -> float:
         """``t``'s bytes on one device."""
         if div is not None:
@@ -371,7 +447,10 @@ class _CellTrace(TorchDispatchMode):
         """The fraction of an op's FLOPs one device runs: its iteration
         space at the shard shapes: a product's is its output's share (the
         layout :meth:`_propagate` gave it) times that of the contracted
-        dimension (:meth:`_contracted`), any other op's its output's."""
+        dimension (:meth:`_contracted`), a kernel's its first output's, any
+        other op's its output's."""
+        if func in _KERNELS:
+            return self.share(out[0] if isinstance(out, list) else out)
         if func in _MATMULS:
             ins = [a for a in args if isinstance(a, torch.Tensor)]
             n = ins[-2].shape[-1]
@@ -465,6 +544,15 @@ class _CellTrace(TorchDispatchMode):
                             self.size(fsdp))
 
     def _propagate(self, func, args, kwargs, out) -> None:
+        kern = _KERNELS.get(func)
+        if kern is not None:
+            lead = self.layout(args[0])
+            if lead is not None:
+                for o, spec in zip(out if isinstance(out, (list, tuple))
+                                   else [out], kern.outs(lead)):
+                    if spec is not None:
+                        self.set_layout(o, spec)
+            return
         if func._overloadpacket in _REDUCTIONS and not (
                 len(args) > 1 and isinstance(args[1], torch.Tensor)):
             have = self.layout(args[0])
@@ -587,8 +675,17 @@ class _CellTrace(TorchDispatchMode):
             self._refine([(nd, want) for o in op.outs
                           if o.layout is not None
                           for nd, want in _implied(op, o, o.layout)])
+        kern = _KERNELS.get(func)
+        fixed = None
+        if kern is not None:
+            acc.kernels[kern.name] += 1
+            lead = args[0]
+            fixed = kern.scratch(args, tuple(
+                lead.shape if div is not None else self.shard_shape(lead)))
+            if div is not None:
+                fixed = {i: b / div for i, b in fixed.items()}
         if not func.is_view:
-            self.allocated(outs, div)
+            self.allocated(outs, div, fixed)
         return out
 
     def node(self, t: torch.Tensor, op: Optional["_Op"] = None
@@ -617,7 +714,15 @@ class _CellTrace(TorchDispatchMode):
                 op.flops / div if div is not None
                 else op.flops * self.flop_share(
                     op.func, args, out[0] if len(out) == 1 else out))
-        if not op.func.is_view and op.func not in _NO_TRAFFIC:
+        kern = _KERNELS.get(op.func)
+        if kern is not None:
+            args = [a.get(self) if isinstance(a, _Node) else a
+                    for a in op.args]
+            nbytes = kern.cost(args)[1]
+            op.acc.bytes += sign * (
+                nbytes / div if div is not None
+                else nbytes * self.share(op.outs[0].get(self)))
+        elif not op.func.is_view and op.func not in _NO_TRAFFIC:
             op.acc.bytes += sign * sum(
                 self.held(t, div) for t in op.tensors(self))
 
@@ -651,11 +756,17 @@ class _CellTrace(TorchDispatchMode):
             self.set_layout(nd.get(self), new)
             if op is None:
                 continue
-            for o in op.outs:
-                if o is not nd:
-                    todo.append((o, _piece(nd.shape, new, o.shape)))
+            ins = _implied(op, nd, new)
+            kern = _KERNELS.get(op.func)
+            if kern is not None:            # its outputs as its lead input
+                sibs = kern.outs(ins[0][1]) if ins else []
+            else:
+                sibs = [_piece(nd.shape, new, o.shape) for o in op.outs]
+            for o, spec in zip(op.outs, sibs):
+                if o is not nd and spec is not None:
+                    todo.append((o, spec))
             self.count(op, None)
-            todo.extend(_implied(op, nd, new))
+            todo.extend(ins)
 
 class _Node:
     """A tensor of the trace as a product of an op outside the mapped
@@ -754,6 +865,10 @@ def _implied(op: _Op, x: _Node, spec: Tuple) -> List[Tuple]:
     func = op.func
     ins = op.inputs()
     out_shape = x.shape
+    kern = _KERNELS.get(func)
+    if kern is not None:
+        return list(zip(ins, kern.ins(op.outs.index(x), spec,
+                                      [n.shape for n in ins])))
     if func is aten.cat.default:
         d = (op.args[1] if len(op.args) > 1 else 0) % len(out_shape)
         return [(n, spec[:d] + (None,) + spec[d + 1:]) for n in op.args[0]]
@@ -1213,9 +1328,12 @@ def _shard_bytes(t: torch.Tensor, sharding) -> int:
 _SCALAR_I32 = 4        # the reference's int32 step counter and ``cur``
 
 
-def analyze(lowered) -> Tuple[Dict, Dict]:
+def analyze(lowered, calls: Optional[Dict[str, int]] = None
+            ) -> Tuple[Dict, Dict]:
     """:func:`analyze_cell`'s counts and the cell's memory per device,
-    the reference's ``memory_analysis()`` keys:
+    the reference's ``memory_analysis()`` keys (``calls``, if given, gets
+    the count of each kernel's calls in the trace, by name: what its
+    ``launches`` count on the card):
 
     - ``argument_bytes``: every argument the step reads at its sharding's
       shard shape (``NamedSharding.shard_shape``), the reference's
@@ -1279,6 +1397,8 @@ def analyze(lowered) -> Tuple[Dict, Dict]:
                      + used(token, lowered.batch_shardings["token"]))
         alias = cache_bytes
         outputs = sum(tr.held(t, None) for t in _flat(result))
+    if calls is not None:
+        calls.update(tr.acc.kernels)
     memory = {"argument_bytes": int(arguments),
               "output_bytes": int(round(outputs)),
               "temp_bytes": int(round(tr.peak)),

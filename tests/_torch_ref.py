@@ -10,7 +10,8 @@ saw and returned to an ``.npz`` file. The alias lives and dies with that
 process: the test process never sees it.
 
     python tests/_torch_ref.py OUT.npz grid|fused|planner|legs|split|moe_ep|
-        seq_attn|seq_models|layout|cost|dryrun|remat
+        seq_attn|seq_models|layout|cost|cost_kernel_{attention,ssm}|dryrun|
+        dryrun_kernel|remat
 
 The mesh cases (``split``, ``moe_ep``, ``seq_attn``, ``seq_models``,
 ``layout``, ``cost``, ``dryrun``) run the reference's sharded paths on a forced host-device count
@@ -95,6 +96,24 @@ def deadline(seconds: int):
     finally:
         signal.alarm(0)
         signal.signal(signal.SIGALRM, old)
+
+
+def on_another_device(t, device: str = "xpu"):
+    """A tensor of ``t``'s shape and dtype on a device the port's kernel
+    wrappers do not run on (no storage; any op on it raises)."""
+    import torch
+
+    class Elsewhere(torch.Tensor):
+        @staticmethod
+        def __new__(cls):
+            return torch.Tensor._make_wrapper_subclass(
+                cls, t.shape, dtype=t.dtype, device=torch.device(device))
+
+        @classmethod
+        def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+            raise RuntimeError(f"{func} ran on {device}")
+
+    return Elsewhere()
 
 
 def warm_up_torch() -> None:
@@ -1013,6 +1032,102 @@ def _child_cost(out: Dict[str, np.ndarray]) -> None:
     out["cost"] = np.array(json.dumps(res))
 
 
+# the kernel path (the reference's ``pallas``, the port's ``flash``): the
+# cost archs with seamless's non-causal encoder and jamba's hybrid stack
+# (at DRYRUN_MOE_EXPERTS), at a seq that is no multiple of the flash
+# kernel's 128-row blocks (the padded grid) and is whole scan chunks (32
+# in the reduced Mamba-2 layers); two groups, two child processes
+KERNEL_COST_GROUPS = {
+    "attention": ("smollm-135m", "kimi-k2-1t-a32b", "seamless-m4t-medium"),
+    "ssm": ("mamba2-370m", "jamba-v0.1-52b")}
+KERNEL_COST_ARCHS = tuple(a for g in KERNEL_COST_GROUPS.values() for a in g)
+KERNEL_COST_SEQ = 192
+# decode attends one token and steps the SSM state: it reaches no kernel
+KERNEL_COST_CASES = tuple(c for c in COST_CASES if c[0] != "decode")
+# one kernel call alone, jitted on one device: flash (B, T, S, Hq, Hkv, d,
+# causal, window) with T and S no multiples of 128 (the attention group),
+# and the SSD scan (B, S, nh, hd, N, chunk) (the ssm group)
+KERNEL_FLASH_CALLS = ((2, 192, 192, 4, 2, 16, True, None),
+                      (1, 100, 300, 2, 2, 32, False, None),
+                      (1, 200, 200, 4, 4, 16, True, 64))
+KERNEL_SSD_CALLS = ((2, 192, 8, 16, 16, 32), (1, 256, 4, 32, 64, 64))
+
+
+def kernel_call_key(kind: str, case) -> str:
+    return f"{kind}|{'|'.join(map(str, case))}"
+
+
+def _child_cost_kernel(out: Dict[str, np.ndarray], group: str) -> None:
+    """:func:`_child_cost` under ``attn_impl="pallas"`` (the Pallas
+    kernels lowered in interpret mode) for the archs of
+    ``KERNEL_COST_GROUPS[group]`` at seq KERNEL_COST_SEQ, every
+    KERNEL_COST_CASES case, with each case's compiled argument bytes; and
+    the dot FLOPs of the group's kernel called alone (KERNEL_FLASH_CALLS,
+    the first also with 4 x its batch split over 4 devices, or
+    KERNEL_SSD_CALLS), as JSON."""
+    import json
+    import jax
+    from repro.configs import ShapeConfig, get_reduced
+    from repro.configs.base import RunConfig
+    from repro.kernels import ops
+    from repro.runtime import pspec, steps
+    from repro.runtime.hlo_analysis import analyze_lowered
+    devs = np.array(jax.devices())
+    if devs.size != COST_DEVICES:
+        raise RuntimeError(f"{devs.size} devices, not {COST_DEVICES}")
+    bf16, f32 = jax.numpy.bfloat16, jax.numpy.float32
+    res = {}
+
+    def alone(fn, *shapes, n=1):
+        mesh = jax.sharding.Mesh(devs[:n].reshape(n), ("data",))
+        split = jax.sharding.NamedSharding(mesh,
+                                           jax.sharding.PartitionSpec("data"))
+        args = [jax.ShapeDtypeStruct(sh, dt, sharding=split)
+                for sh, dt in shapes]
+        lowered = jax.jit(fn, out_shardings=split).lower(*args)
+        return analyze_lowered(lowered, lowered.compile())[
+            "dot_flops_per_chip"]
+
+    if group == "attention":
+        for case in KERNEL_FLASH_CALLS:
+            b, t, s, hq, hkv, d, causal, window = case
+            for n, key in ((1, kernel_call_key("flash", case)),
+                           (4, "flash_batch_over_4")):
+                if n == 4 and case != KERNEL_FLASH_CALLS[0]:
+                    continue
+                res[key] = alone(
+                    lambda q, k, v: ops.flash_attention(q, k, v, causal,
+                                                        window),
+                    ((n * b, t, hq, d), bf16), ((n * b, s, hkv, d), bf16),
+                    ((n * b, s, hkv, d), bf16), n=n)
+    else:
+        for case in KERNEL_SSD_CALLS:
+            b, s, nh, hd, n, q = case
+            res[kernel_call_key("ssd", case)] = alone(
+                lambda *a: ops.ssd_scan(*a, chunk=q), ((b, s, nh, hd), bf16),
+                ((b, s, nh), f32), ((nh,), f32), ((b, s, 1, n), bf16),
+                ((b, s, 1, n), bf16))
+    for arch in KERNEL_COST_GROUPS[group]:
+        cfg = dryrun_config(get_reduced, arch)
+        run = RunConfig(arch=arch, multi_pod=True, attn_impl="pallas")
+        for kind, sizes in KERNEL_COST_CASES:
+            mesh = jax.sharding.Mesh(
+                devs[:int(np.prod(sizes))].reshape(sizes),
+                ("pod", "data", "model"))
+            shape = ShapeConfig("t", seq_len=KERNEL_COST_SEQ,
+                                global_batch=COST_BATCH, kind=kind)
+            with pspec.sharding_scope(mesh, run.sharding):
+                lowered, got = steps.lower_cell(cfg, run, shape)
+                compiled = lowered.compile()
+                hlo = analyze_lowered(lowered, compiled)
+                mem = compiled.memory_analysis()
+            hlo.pop("entry")
+            hlo["kind"] = got
+            hlo["argument_bytes"] = int(mem.argument_size_in_bytes)
+            res[cost_key(arch, kind, sizes)] = hlo
+    out["cost_kernel"] = np.array(json.dumps(res))
+
+
 DRYRUN_DEVICES = 512                   # launch/dryrun.py's forced count
 DRYRUN_REDUCED = dict(layers=2, d_model=64, vocab=256)
 # the MoE archs at 16 experts: the reference's moe.py:125 asks n_experts
@@ -1043,17 +1158,24 @@ def dryrun_key(arch: str, shape: str, multi_pod: bool) -> str:
     return f"{arch}|{shape}|{'2x16x16' if multi_pod else '16x16'}"
 
 
-def _child_dryrun(out: Dict[str, np.ndarray]) -> None:
+# the dry-run cells whose ``flash`` path reaches a kernel in the port: the
+# SSD scan (mamba2, jamba's SSM layers) and seamless's non-causal encoder
+KERNEL_DRYRUN_CELLS = tuple((a, s, False) for a in (
+    "mamba2-370m", "jamba-v0.1-52b", "seamless-m4t-medium")
+    for s in ("train_4k", "prefill_32k")) + (("mamba2-370m", "train_4k",
+                                              True),)
+
+
+def _dryrun_records(cells_todo, extra: List[str]) -> Dict:
     """The reference's own ``launch/dryrun.py`` ``main(["--arch", a,
-    "--shape", s, ("--multi-pod",) "--json", p])`` on every cell of
-    :func:`dryrun_cells`, its production meshes built with
-    ``jax.sharding.Mesh`` over the 512 forced devices and its configs
-    reduced (:func:`dryrun_config`), as JSON: one record a cell, by
-    :func:`dryrun_key`."""
+    "--shape", s, ("--multi-pod",) "--json", p] + extra)`` on each of
+    ``cells_todo``, its production meshes built with ``jax.sharding.Mesh``
+    over the 512 forced devices and its configs reduced
+    (:func:`dryrun_config`): one record a cell, by :func:`dryrun_key`."""
     import json
     import tempfile
     import jax
-    from repro.configs import cells, get_reduced
+    from repro.configs import get_reduced
     from repro.launch import dryrun as D
     devs = np.array(jax.devices())
     if devs.size != DRYRUN_DEVICES:
@@ -1069,15 +1191,32 @@ def _child_dryrun(out: Dict[str, np.ndarray]) -> None:
     D.get_config = lambda arch: dryrun_config(get_reduced, arch)
     res = {}
     with tempfile.TemporaryDirectory() as d:
-        for arch, shape, mp in dryrun_cells(cells):
+        for arch, shape, mp in cells_todo:
             path = os.path.join(d, "cell.json")
-            argv = ["--arch", arch, "--shape", shape, "--json", path]
+            argv = ["--arch", arch, "--shape", shape, "--json", path] + extra
             if D.main(argv + (["--multi-pod"] if mp else [])) != 0:
                 raise RuntimeError(f"reference dry run failed: {argv}")
             with open(path) as f:
                 (rec,) = json.load(f)
             res[dryrun_key(arch, shape, mp)] = rec
-    out["dryrun"] = np.array(json.dumps(res))
+    return res
+
+
+def _child_dryrun(out: Dict[str, np.ndarray]) -> None:
+    """:func:`_dryrun_records` of every cell of :func:`dryrun_cells`, as
+    JSON."""
+    import json
+    from repro.configs import cells
+    out["dryrun"] = np.array(json.dumps(_dryrun_records(
+        dryrun_cells(cells), [])))
+
+
+def _child_dryrun_kernel(out: Dict[str, np.ndarray]) -> None:
+    """:func:`_dryrun_records` of KERNEL_DRYRUN_CELLS under ``--attn-impl
+    pallas``, as JSON."""
+    import json
+    out["dryrun_kernel"] = np.array(json.dumps(_dryrun_records(
+        KERNEL_DRYRUN_CELLS, ["--attn-impl", "pallas"])))
 
 
 REMAT_SEQS = (1024, 1536, 4096)
@@ -1122,7 +1261,8 @@ def rehearse_phase_20(chip_smoke, monkeypatch) -> None:
     and ``card_memory`` measured on the CPU run itself: the bytes of the
     step's arguments (the model's parameters, the optimizer state, the
     batch) and the most the call allocates over them, as the cost trace's
-    storage tracking sees real CPU tensors."""
+    storage tracking sees real CPU tensors; the kernels' wrappers count
+    their CPU calls as launches (:func:`launch_counters`)."""
     import torch
     from repro_torch import configs
     from repro_torch.models import model as M
@@ -1182,6 +1322,28 @@ def rehearse_phase_20(chip_smoke, monkeypatch) -> None:
     monkeypatch.setattr(adamw, "adamw_init", adamw_init)
     monkeypatch.setattr(M, "make_batch", make_batch)
     monkeypatch.setattr(chip_smoke, "card_memory", card_memory)
+    launch_counters(monkeypatch)
+
+
+def _counting(real):
+    def counted(*args, **kwargs):
+        if args[0].device.type == "cpu":
+            counted.launches += 1
+        return real(*args, **kwargs)
+
+    counted.launches = 0
+    return counted
+
+
+def launch_counters(monkeypatch) -> None:
+    """Wrap ``flash_attention.flash_attention`` and ``ssd_scan.ssd_scan``
+    (which ``kernels/ops.py`` looks up at call time) in counters of their
+    calls on CPU tensors, in each wrapper's ``launches``: a CPU rehearsal's
+    stand-in for the card's launches (a meta call launches nothing)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    for mod, name in ((fa, "flash_attention"), (ssd, "ssd_scan")):
+        monkeypatch.setattr(mod, name, _counting(getattr(mod, name)))
 
 
 def _entry_json(e):
@@ -1269,5 +1431,8 @@ if __name__ == "__main__":
      "split": _child_split, "moe_ep": _child_moe_ep,
      "seq_attn": _child_seq_attn, "seq_models": _child_seq_models,
      "layout": _child_layout, "cost": _child_cost,
+     "cost_kernel_attention": lambda o: _child_cost_kernel(o, "attention"),
+     "cost_kernel_ssm": lambda o: _child_cost_kernel(o, "ssm"),
+     "dryrun_kernel": _child_dryrun_kernel,
      "dryrun": _child_dryrun, "remat": _child_remat}[what](arrays)
     np.savez(path, **arrays)

@@ -76,6 +76,21 @@ FLOP_GAPS = {
     "seamless-m4t-medium|train_4k|16x16": -19126026240,
     "seamless-m4t-medium|prefill_32k|16x16": -13891534848,
 }
+# port (flash) - reference (pallas) on the cells whose kernel path reaches
+# a kernel (tests/test_torch_kernel_cost.py names the kinds): the reference
+# runs every interpreted grid whole on each of 256 or 512 devices and
+# recomputes the SSD's backward through its sequential oracle (train); the
+# port's prefill runs the SSD kernel where the reference's runs its chunked
+# jnp scan, and its seamless encoder splits otherwise (FLOP_GAPS)
+KERNEL_FLOP_GAPS = {
+    "mamba2-370m|train_4k|16x16": -20470300672,
+    "mamba2-370m|prefill_32k|16x16": 142606336,
+    "jamba-v0.1-52b|train_4k|16x16": -9207545856,
+    "jamba-v0.1-52b|prefill_32k|16x16": 134217728,
+    "seamless-m4t-medium|train_4k|16x16": -149854093312,
+    "seamless-m4t-medium|prefill_32k|16x16": -516402708480,
+    "mamba2-370m|train_4k|2x16x16": -21553479680,
+}
 
 
 def _key(cell) -> str:
@@ -94,6 +109,14 @@ def reference(tmp_path_factory):
 def reduced(monkeypatch):
     monkeypatch.setattr(D, "get_config",
                         lambda arch: ref.dryrun_config(get_reduced, arch))
+
+
+@pytest.fixture(scope="module")
+def kernel_reference(tmp_path_factory):
+    arrs = ref.run_reference("dryrun_kernel", tmp_path_factory.mktemp("ref")
+                             / "dryrun_kernel.npz", timeout=600,
+                             host_devices=ref.DRYRUN_DEVICES)
+    return json.loads(str(arrs["dryrun_kernel"]))
 
 
 def _main(argv, path: Path) -> tuple:
@@ -177,16 +200,31 @@ def test_a_cell_that_raises_is_an_error_record(reduced, monkeypatch,
     assert "FAILURES (2):" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "seamless-m4t-medium"])
-def test_flash_reaching_a_kernel_is_an_error_naming_meta(reduced, tmp_path,
-                                                         arch):
-    """A kernel's wrapper runs on a card or the CPU, never on meta
-    tensors: a cell whose path reaches one (the SSD scan, seamless's
-    non-causal encoder) is an error record, and ``main`` returns 1."""
-    rc, (rec,) = _main(["--arch", arch, "--shape", "prefill_32k",
-                        "--attn-impl", "flash"], tmp_path / "flash.json")
-    assert rc == 1
-    assert "not meta" in rec["error"]
+@pytest.mark.parametrize("cell", ref.KERNEL_DRYRUN_CELLS, ids=_key)
+def test_a_kernel_reaching_cell_traces_as_the_references_pallas(
+        kernel_reference, reduced, tmp_path, cell):
+    """Under ``--attn-impl flash`` a cell whose path reaches a kernel (the
+    SSD scan, seamless's non-causal encoder) traces the kernels on meta
+    tensors by their rules: no error record, the reference's keys and
+    argument bytes, its ``pallas`` dot FLOPs or the pinned gap, and counts
+    other than the blockwise path's."""
+    arch, shape, multi_pod = cell
+    argv = ["--arch", arch, "--shape", shape] + (
+        ["--multi-pod"] if multi_pod else [])
+    rc, (got,) = _main(argv + ["--attn-impl", "flash"], tmp_path / "f")
+    want = kernel_reference[_key(cell)]
+    assert rc == 0 and "error" not in got
+    assert _paths(got) == {p for p in _paths(want)
+                           if p not in {("hlo", k) for k in NOT_HLO}}
+    assert got["kind"] == want["kind"]
+    assert (got["memory"]["argument_bytes"]
+            == want["memory"]["argument_bytes"])
+    gap = (got["hlo"]["dot_flops_per_chip"]
+           - want["hlo"]["dot_flops_per_chip"])
+    assert gap == KERNEL_FLOP_GAPS[_key(cell)], gap
+    _, (block,) = _main(argv, tmp_path / "b")
+    assert got["hlo"]["dot_flops_per_chip"] \
+        != block["hlo"]["dot_flops_per_chip"]
 
 
 def test_flash_where_the_reference_goes_blockwise_counts_blockwise(
@@ -383,8 +421,10 @@ def test_chip_smoke_phase_20_memory_gate_on_reduced_cells(monkeypatch):
     gate; a card peak twice the trace's fails it."""
     import chip_smoke
     ref.rehearse_phase_20(chip_smoke, monkeypatch)
-    got = [chip_smoke.roofline_cell("mamba2-370m", "train", 2, 64, "cpu"),
-           chip_smoke.roofline_cell("gemma3-12b", "prefill", 2, 64, "cpu")]
+    got = [chip_smoke.roofline_cell("mamba2-370m", "train", 2, 64,
+                                    "blockwise", "cpu"),
+           chip_smoke.roofline_cell("gemma3-12b", "prefill", 2, 64,
+                                    "blockwise", "cpu")]
     lo, hi = chip_smoke.PEAK_RATIO_BOUNDS
     for r in got:
         assert lo <= r["peak_ratio"] <= hi, r
@@ -393,7 +433,49 @@ def test_chip_smoke_phase_20_memory_gate_on_reduced_cells(monkeypatch):
     monkeypatch.setattr(chip_smoke, "card_memory",
                         lambda call: (0, 2 * peak))
     with pytest.raises(RuntimeError, match="outside"):
-        chip_smoke.roofline_cell("mamba2-370m", "train", 2, 64, "cpu")
+        chip_smoke.roofline_cell("mamba2-370m", "train", 2, 64, "blockwise",
+                                 "cpu")
+
+
+def test_chip_smoke_phase_20_flash_cells_on_reduced_cells(monkeypatch):
+    """Phase 20's kernel-path cells at reduced size: the flash kernel in
+    gemma3's prefill, the SSD kernel's forward (and its remat) with the
+    plain backward in mamba2's step. The FlopCounterMode count equals the
+    trace's, the memory gate holds, and each kernel's launches in the
+    counted call equal its custom-op calls in the trace (the CPU
+    rehearsal counts the wrappers' CPU calls as launches); a kernel that
+    launched once more than the trace calls it fails the gate."""
+    import chip_smoke
+    from repro_torch.kernels import ssd_scan as ssd
+    ref.rehearse_phase_20(chip_smoke, monkeypatch)
+    got = [chip_smoke.roofline_cell("gemma3-12b", "prefill", 2, 64, "flash",
+                                    "cpu"),
+           chip_smoke.roofline_cell("mamba2-370m", "train", 2, 64, "flash",
+                                    "cpu")]
+    lo, hi = chip_smoke.PEAK_RATIO_BOUNDS
+    for r in got:
+        assert r["card_flops"] == r["dot_flops_per_chip"] > 0
+        assert lo <= r["peak_ratio"] <= hi, r
+        assert {n: k for n, k in r["launches"].items() if k} \
+            == r["trace_kernel_calls"]
+    assert got[0]["launches"] == {"flash_attention": 2, "ssd_scan": 0}
+    assert got[1]["launches"] == {"flash_attention": 0, "ssd_scan": 4}
+    assert chip_smoke.roofline_paths(got) == (
+        {"20 roofline gemma3-12b prefill": 2},
+        {"20 roofline mamba2-370m train": 4})
+    inner = ssd.ssd_scan
+
+    def one_more(*args, **kwargs):
+        # the first call after each reset counts two launches
+        if args[0].device.type == "cpu":
+            one_more.launches += 1 + (one_more.launches == 0)
+        return inner(*args, **kwargs)
+
+    one_more.launches = 0
+    monkeypatch.setattr(ssd, "ssd_scan", one_more)
+    with pytest.raises(RuntimeError, match="launched"):
+        chip_smoke.roofline_cell("mamba2-370m", "train", 2, 64, "flash",
+                                 "cpu")
 
 
 def _reduced_python(tmp_path: Path) -> str:
@@ -418,12 +500,36 @@ def test_chip_smoke_phase_21_runs_the_dry_run_at_reduced_size(tmp_path,
     import chip_smoke
     recs = chip_smoke.dryrun_phase(tmp_path,
                                    python=_reduced_python(tmp_path))
-    assert len(recs) == 4
+    assert len(recs) == 6
     assert {(r["arch"], r["shape"], r["mesh"]) for r in recs} == {
-        (a, s, m) for a, s in chip_smoke.DRYRUN_CELLS
+        (a, s, m) for a, s, _ in chip_smoke.DRYRUN_CELLS
         for m in chip_smoke.DRYRUN_MESHES}
     out = capsys.readouterr().out
-    assert out.count('"dryrun_cell"') == 4
+    assert out.count('"dryrun_cell"') == 6
+
+
+def test_chip_smoke_phase_21_flash_cell_counts_the_ssd_kernel(
+        reduced, tmp_path, monkeypatch, capsys):
+    """Phase 21's kernel-path cell, mamba2's ``train_4k`` under ``--attn-impl
+    flash``, beside its blockwise run: on both meshes the subprocess's
+    records are ``run_cell``'s on the kernel path, whose dot FLOPs are not
+    the blockwise path's."""
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "DRYRUN_CELLS", (
+        ("mamba2-370m", "train_4k", "blockwise"),
+        ("mamba2-370m", "train_4k", "flash")))
+    recs = chip_smoke.dryrun_phase(tmp_path,
+                                   python=_reduced_python(tmp_path))
+    assert '"attn_impl": "flash"' in capsys.readouterr().out
+    block, flash = recs[:2], recs[2:]
+    for b, f in zip(block, flash):
+        want = D.run_cell("mamba2-370m", "train_4k",
+                          multi_pod=f["mesh"] == "2x16x16", verbose=False,
+                          run_overrides={"attn_impl": "flash"})
+        assert f["hlo"] == want["hlo"] and f["memory"] == want["memory"]
+        assert f["mesh"] == b["mesh"]
+        assert f["hlo"]["dot_flops_per_chip"] \
+            != b["hlo"]["dot_flops_per_chip"]
 
 
 def test_chip_smoke_phase_21_fails_on_a_missing_key(tmp_path, monkeypatch):

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_ref
 from repro_torch.kernels import flash_attention as fa
 
 REPO = Path(__file__).resolve().parents[1]
@@ -114,8 +115,12 @@ def test_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
     assert fa.flash_attention.launches == before
     torch.testing.assert_close(
         got, fa.flash_attention_plain(q, k, v, causal=True), rtol=0, atol=0)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    meta = fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert (meta.device.type, meta.shape, meta.dtype) == (
+        "meta", q.shape, q.dtype)
+    assert fa.flash_attention.launches == before
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        fa.flash_attention(*(_torch_ref.on_another_device(t) for t in (q, k, v)))
     with pytest.raises(ValueError, match="group"):
         fa.flash_attention(q[:, :, :3], k, v)
     with pytest.raises(ValueError, match="window"):

@@ -97,8 +97,10 @@ def test_chip_smoke_phase_20_passes_on_reduced_cells(monkeypatch):
     run, ``_torch_ref.rehearse_phase_20``)."""
     import chip_smoke
     ref.rehearse_phase_20(chip_smoke, monkeypatch)
-    got = [chip_smoke.roofline_cell("gemma3-12b", "prefill", 2, 64, "cpu"),
-           chip_smoke.roofline_cell("mamba2-370m", "train", 2, 64, "cpu")]
+    got = [chip_smoke.roofline_cell("gemma3-12b", "prefill", 2, 64, "blockwise",
+                                     "cpu"),
+           chip_smoke.roofline_cell("mamba2-370m", "train", 2, 64, "blockwise",
+                                     "cpu")]
     for r in got:
         assert r["card_flops"] == r["dot_flops_per_chip"] > 0
         assert 0 < r["t_compute_ms"] <= r["measured_ms"] == 1e3

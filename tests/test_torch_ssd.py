@@ -258,8 +258,12 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
     y2, h2 = ssd.ssd_chunked(*ins, case[-1])
     assert ssd.ssd_scan.launches == before
     assert torch.equal(y, y2) and torch.equal(h, h2)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ssd.ssd_scan(*(t.to("meta") for t in ins), case[-1])
+    ym, hm = ssd.ssd_scan(*(t.to("meta") for t in ins), case[-1])
+    assert (ym.device.type, ym.shape, ym.dtype) == ("meta", y.shape, y.dtype)
+    assert (hm.device.type, hm.shape, hm.dtype) == ("meta", h.shape, h.dtype)
+    assert ssd.ssd_scan.launches == before
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        ssd.ssd_scan(*(_torch_ref.on_another_device(t) for t in ins), case[-1])
     x, dt, A, Bm, Cm = ins
     with pytest.raises(ValueError, match="n_groups"):
         ssd.ssd_scan(x, dt, A, Bm.expand(-1, -1, 2, -1),
