@@ -17,7 +17,10 @@ dispatched at its own capacity, each model rank running its own slice of
 the experts; under a shape-only mesh, as one coordinate's body (a
 cell's cost trace, ``runtime.cost_analysis``). Each step here is a
 module-level function that :func:`moe_ffn` and the branch look up when
-they run.
+they run. On one device, the route, the dispatch, the expert products
+and the combine are each a span of :mod:`repro_torch.core.obs.runtime`
+(``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``),
+beside the dispatch's counters (:func:`count_dispatch`).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core.obs import runtime as obs
 from repro_torch.models.layers import ffn
 from repro_torch.runtime import pspec as PS
 
@@ -164,6 +168,18 @@ def combine(out_buf: torch.Tensor, e_flat: torch.Tensor, slot: torch.Tensor,
     return y.reshape(-1, top_k, y.shape[-1]).sum(1)
 
 
+def count_dispatch(keep: torch.Tensor, slots: int) -> None:
+    """The dispatch's counters (:mod:`repro_torch.core.obs.runtime`):
+    ``moe.assignments`` (T * k) and ``moe.slots`` (the rows the expert
+    products compute, E * capacity) on the host, ``moe.kept`` and
+    ``moe.dropped`` (past the capacity) on the device."""
+    kept = keep.sum()
+    obs.count("moe.assignments", keep.numel())
+    obs.count("moe.slots", slots)
+    obs.count_device("moe.kept", kept)
+    obs.count_device("moe.dropped", keep.numel() - kept)
+
+
 def _branch(p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor,
             gated: bool) -> torch.Tensor:
     names = ("wg", "wu", "wd") if gated else ("wu", "wd")
@@ -186,7 +202,9 @@ def expert_parallel(p: Dict[str, torch.Tensor], xt: torch.Tensor,
     FSDP gather is the identity here); its f32 combine is cast to xt's
     dtype before the sum over ranks, which runs in rank order on the
     shard's rank-0 device. aux is the mean of the shards' aux. The
-    shards' outputs join in shard order on xt's device.
+    shards' outputs join in shard order on xt's device. It opens no
+    ``moe.*`` span and counts nothing (:func:`count_dispatch`): those are
+    the single-device branch's.
 
     Under a shape-only mesh, inside a cell's cost trace and only there,
     one coordinate's body runs instead (:func:`_one_coordinate`): what one
@@ -317,16 +335,23 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig, *,
     if mesh is not None:
         y, aux = expert_parallel(p, xt, cfg, gated, mesh)
     else:
-        top_p, top_i, aux = route(p["router"], xt, cfg)
+        with obs.span("moe.route"):
+            top_p, top_i, aux = route(p["router"], xt, cfg)
         cap = capacity(T, cfg)
-        e_flat, slot, keep = dispatch_indices(top_i, cfg.n_experts, cap)
-        buf = PS.logical_constraint(
-            scatter(xt, e_flat, slot, keep, cfg.n_experts, cap, cfg.top_k),
-            ("expert", "capacity", None))
-        out_buf = PS.logical_constraint(experts(p, buf, gated),
-                                        ("expert", "capacity", None))
-        y = combine(out_buf, e_flat, slot, top_p, keep,
-                    cfg.top_k).to(x.dtype)
+        with obs.span("moe.dispatch"):
+            e_flat, slot, keep = dispatch_indices(top_i, cfg.n_experts, cap)
+            buf = PS.logical_constraint(
+                scatter(xt, e_flat, slot, keep, cfg.n_experts, cap,
+                        cfg.top_k),
+                ("expert", "capacity", None))
+        if obs.recording():
+            count_dispatch(keep, cfg.n_experts * cap)
+        with obs.span("moe.experts"):
+            out_buf = PS.logical_constraint(experts(p, buf, gated),
+                                            ("expert", "capacity", None))
+        with obs.span("moe.combine"):
+            y = combine(out_buf, e_flat, slot, top_p, keep,
+                        cfg.top_k).to(x.dtype)
     branch = (_branch if mesh is None or isinstance(mesh, PS.HostMesh)
               else _branch_counted)
     if cfg.n_shared_experts:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.core.obs import runtime as obs
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.models.layers import rms_norm
@@ -91,18 +92,19 @@ def mamba_block(params: Dict[str, torch.Tensor], x: torch.Tensor,
 
     zxbcdt = x @ params["in_proj"].to(x.dtype)
     z, xBC, dt = torch.split(zxbcdt, [d_in, conv_ch, nh], dim=-1)
-    dt = F.softplus(dt.float() + params["dt_bias"].float())
-    A = -torch.exp(params["A_log"].float())
+    with obs.span("ssm.f32"):
+        dt = F.softplus(dt.float() + params["dt_bias"].float())
+        A = -torch.exp(params["A_log"].float())
 
-    if state is None:
-        conv_tail = xBC[:, -(w - 1):, :]
-        xBC = F.silu(_causal_conv(xBC.float(), params["conv"].float())
-                     ).to(x.dtype)
-    else:
-        window = torch.cat([state.conv, xBC], dim=1)          # [B, w, C]
-        conv_out = torch.einsum("bwc,wc->bc", window.float(),
-                                params["conv"].float())
-        xBC = F.silu(conv_out)[:, None, :].to(x.dtype)
+        if state is None:
+            conv_tail = xBC[:, -(w - 1):, :]
+            xBC = F.silu(_causal_conv(xBC.float(), params["conv"].float())
+                         ).to(x.dtype)
+        else:
+            window = torch.cat([state.conv, xBC], dim=1)      # [B, w, C]
+            conv_out = torch.einsum("bwc,wc->bc", window.float(),
+                                    params["conv"].float())
+            xBC = F.silu(conv_out)[:, None, :].to(x.dtype)
 
     xs, Bm, Cm = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
     xs = PS.logical_constraint(xs.reshape(B, S, nh, hd),
@@ -124,9 +126,10 @@ def mamba_block(params: Dict[str, torch.Tensor], x: torch.Tensor,
         y = y1[:, None]
         new_state = SSMState(conv=window[:, 1:, :], h=h_next)
 
-    y = y.float() + xs.float() * params["D"].float()[None, None, :, None]
-    y = y.reshape(B, S, d_in)
-    y = rms_norm(y * F.silu(z.float()), params["gate_norm"], norm_eps)
+    with obs.span("ssm.f32"):
+        y = y.float() + xs.float() * params["D"].float()[None, None, :, None]
+        y = y.reshape(B, S, d_in)
+        y = rms_norm(y * F.silu(z.float()), params["gate_norm"], norm_eps)
     return y.to(x.dtype) @ params["out_proj"].to(x.dtype), new_state
 
 

@@ -18,6 +18,8 @@ from typing import Dict, Iterable, Mapping
 
 import torch
 
+from repro_torch.core.obs import runtime as obs
+
 STACKED_PREFIX = "decoder.layers."
 
 
@@ -74,18 +76,19 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt: OptState,
     """One step, in place: ``opt`` advances and each parameter becomes its
     new master weight in the parameter's dtype. Returns the metrics
     {"grad_norm", "clip_scale"} as 0-dim device tensors."""
-    opt.step += 1
-    gnorm = global_norm(grads.values())
-    scale = (torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
-             if grad_clip > 0 else torch.ones_like(gnorm))
-    b1c = 1.0 - beta1 ** opt.step
-    b2c = 1.0 - beta2 ** opt.step
-    for k, g in grads.items():
-        m, v, w = opt.m[k], opt.v[k], opt.master[k]
-        g = g.float() * scale
-        m.mul_(beta1).add_(g, alpha=1 - beta1)
-        v.mul_(beta2).addcmul_(g, g, value=1 - beta2)
-        wd = weight_decay if decays(k, params[k]) else 0.0
-        w.sub_(lr * ((m / b1c) / (torch.sqrt(v / b2c) + eps) + wd * w))
-        params[k].copy_(w)
+    with obs.span("adamw.update"):
+        opt.step += 1
+        gnorm = global_norm(grads.values())
+        scale = (torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+                 if grad_clip > 0 else torch.ones_like(gnorm))
+        b1c = 1.0 - beta1 ** opt.step
+        b2c = 1.0 - beta2 ** opt.step
+        for k, g in grads.items():
+            m, v, w = opt.m[k], opt.v[k], opt.master[k]
+            g = g.float() * scale
+            m.mul_(beta1).add_(g, alpha=1 - beta1)
+            v.mul_(beta2).addcmul_(g, g, value=1 - beta2)
+            wd = weight_decay if decays(k, params[k]) else 0.0
+            w.sub_(lr * ((m / b1c) / (torch.sqrt(v / b2c) + eps) + wd * w))
+            params[k].copy_(w)
     return {"grad_norm": gnorm, "clip_scale": scale}

@@ -20,6 +20,7 @@ from repro_torch._device import resolve_device
 from repro_torch.cluster.topology import Cluster, default_cluster
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.carbon.intensity import PAPER_WINDOW_T0, calibrated_ci
+from repro_torch.core.obs import runtime as obs
 from repro_torch.models.layers import check_attn_impl
 from repro_torch.models.model import (Transformer, build_model, decode_step,
                                       prefill)
@@ -118,47 +119,58 @@ class Server:
             return []
         batch_reqs = self.queue[:self.batch]
         S = max(r.prompt.shape[0] for r in batch_reqs)
-        ssm = self.cfg.ssm
-        if self.cfg.family in ("ssm", "hybrid") and S % ssm.chunk_size:
-            raise ValueError(f"{self.cfg.name} prefills whole scan chunks: "
-                             f"prompt length {S} is not a multiple of "
-                             f"{ssm.chunk_size}")
-        self.queue = self.queue[self.batch:]
-        # re-evaluate placement each epoch (overlay lever)
-        self.site = pick_site(self.cluster, self.now)
+        with obs.span("serve_loop.epoch", rids=[r.rid for r in batch_reqs],
+                      padded_len=S, rows=self.batch):
+            return self._epoch(batch_reqs, S)
 
-        n = len(batch_reqs)
-        prompts = torch.stack([F.pad(r.prompt.to(torch.int64),
-                                     (0, S - r.prompt.shape[0]))
-                               for r in batch_reqs])
-        if n < self.batch:
-            prompts = F.pad(prompts, (0, 0, 0, self.batch - n))
-        prompts = prompts.to(self.device)
-        self._sync()
+    def _epoch(self, batch_reqs: List[Request], S: int) -> List[Completion]:
+        with obs.span("serve_loop.batch"):
+            ssm = self.cfg.ssm
+            if self.cfg.family in ("ssm", "hybrid") and S % ssm.chunk_size:
+                raise ValueError(f"{self.cfg.name} prefills whole scan "
+                                 f"chunks: prompt length {S} is not a "
+                                 f"multiple of {ssm.chunk_size}")
+            self.queue = self.queue[self.batch:]
+            # re-evaluate placement each epoch (overlay lever)
+            self.site = pick_site(self.cluster, self.now)
+
+            n = len(batch_reqs)
+            prompts = torch.stack([F.pad(r.prompt.to(torch.int64),
+                                         (0, S - r.prompt.shape[0]))
+                                   for r in batch_reqs])
+            if n < self.batch:
+                prompts = F.pad(prompts, (0, 0, 0, self.batch - n))
+            prompts = prompts.to(self.device)
+            self._sync()
         t0 = time.perf_counter()
-        logits, cache = prefill(self.model, self.run, prompts, self.s_max)
-        tok = torch.argmax(logits, -1)[:, None]
+        with obs.span("serve_loop.prefill"):
+            logits, cache = prefill(self.model, self.run, prompts,
+                                    self.s_max)
+            tok = torch.argmax(logits, -1)[:, None]
         out_tokens = [tok]
         max_new = max(r.max_new_tokens for r in batch_reqs)
         for i in range(max_new - 1):
-            logits, cache = decode_step(self.model, self.run, tok, cache,
-                                        S + i)
-            tok = torch.argmax(logits, -1)[:, None]
+            with obs.span("serve_loop.decode"):
+                logits, cache = decode_step(self.model, self.run, tok,
+                                            cache, S + i)
+                tok = torch.argmax(logits, -1)[:, None]
             out_tokens.append(tok)
-        toks = torch.cat(out_tokens, dim=1).cpu()
-        self._sync()
+        with obs.span("serve_loop.collect"):
+            toks = torch.cat(out_tokens, dim=1).cpu()
+            self._sync()
         dt = time.perf_counter() - t0
-        self.now += dt
 
-        kwh = self.chip_count * self.chip_power_w * dt / 3.6e6
-        mg_total = kwh * self._ci() * 1e3
-        done = []
-        for j, r in enumerate(batch_reqs):
-            done.append(Completion(
-                rid=r.rid,
-                tokens=toks[j, :r.max_new_tokens].tolist(),
-                latency_s=dt,
-                emissions_mg=mg_total / max(n, 1),
-                site=self.site))
-        self.completions.extend(done)
+        with obs.span("serve_loop.account"):
+            self.now += dt
+            kwh = self.chip_count * self.chip_power_w * dt / 3.6e6
+            mg_total = kwh * self._ci() * 1e3
+            done = []
+            for j, r in enumerate(batch_reqs):
+                done.append(Completion(
+                    rid=r.rid,
+                    tokens=toks[j, :r.max_new_tokens].tolist(),
+                    latency_s=dt,
+                    emissions_mg=mg_total / max(n, 1),
+                    site=self.site))
+            self.completions.extend(done)
         return done

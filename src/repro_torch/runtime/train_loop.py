@@ -35,6 +35,7 @@ from repro_torch.cluster.topology import Cluster, default_cluster
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.carbon.intensity import PAPER_WINDOW_T0, calibrated_ci
 from repro_torch.core.carbon.score import TransferLedger
+from repro_torch.core.obs import runtime as obs
 from repro_torch.core.scheduler.planner import TorchCarbonPlanner
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.models.model import Transformer, build_model
@@ -181,68 +182,73 @@ class Trainer:
                     continue
 
             # --- data (carbon-aware shard sourcing) ---
-            batch = self.pipeline.next_batch(self.t)
+            with obs.span("train_loop.data"):
+                batch = self.pipeline.next_batch(self.t)
 
             # --- the real computation ---
-            metrics = self.step_fn(self.model, self.opt, batch)
+            with obs.span("train_loop.step_fn"):
+                metrics = self.step_fn(self.model, self.opt, batch)
 
-            # --- simulated fleet time w/ straggler mitigation ---
-            t_step, dropped = self.stragglers.effective_step_time(
-                step, base_s=lp.step_time_s)
-            if dropped:
-                self.events.append(f"stragglers@{step}:{','.join(dropped)}")
-            self.t += t_step
-
-            # --- carbon accounting ---
-            kwh = lp.chips * lp.chip_power_w * t_step / 3.6e6
-            energy_kwh += kwh
-            emissions_g += kwh * ci
-            self.ledger.record(self.t, float(step + 1), ci, 0.0)
-
-            # --- carbon-adaptive cross-pod sync (local-SGD) ---
-            steps_since_sync += 1
-            h = (self.sync_ctl.period(ci) if lp.carbon_aware
-                 else self.sync_ctl.h_min)
-            if steps_since_sync >= h:
-                factor = {"none": 1.0, "int8": 0.25,
-                          "topk": 0.02}[self.run.grad_compression]
-                dcn_bytes += self._param_bytes() * factor
-                steps_since_sync = 0
-
-            # --- checkpoint + carbon-scheduled mirror ---
-            if self.ckpt.should_save(step + 1):
-                self.ckpt.save(step + 1, self.params, self.opt,
-                               extra={"pipeline": self.pipeline.snapshot()},
-                               src_site=self.site, now=self.t)
-                for job in self.ckpt.pending_mirrors:
-                    plan = self.planner.plan(job)
+            with obs.span("train_loop.account"):
+                # --- simulated fleet time w/ straggler mitigation ---
+                t_step, dropped = self.stragglers.effective_step_time(
+                    step, base_s=lp.step_time_s)
+                if dropped:
                     self.events.append(
-                        f"mirror@{step+1}: start+"
-                        f"{(plan.start_t - self.t)/3600:.1f}h "
-                        f"ci={plan.predicted_avg_ci:.0f} "
-                        f"{plan.predicted_emissions_g:.1f}g")
-                self.ckpt.pending_mirrors.clear()
+                        f"stragglers@{step}:{','.join(dropped)}")
+                self.t += t_step
 
-            # --- §4.3 carbon migration of the job itself ---
-            if lp.carbon_aware and (step + 1) % 20 == 0:
-                remaining_s = (n - step) * lp.step_time_s
-                plan = self.elastic.carbon_migration(
-                    self.site, self.t, float(self._param_bytes()),
-                    remaining_s)
-                if plan is not None:
-                    self.events.append(f"migrate@{step+1}:{plan.reason}")
-                    self.site = self.cluster.site_of(plan.pods[0]).name
-                    self.pipeline.consumer_site = self.site
+                # --- carbon accounting ---
+                kwh = lp.chips * lp.chip_power_w * t_step / 3.6e6
+                energy_kwh += kwh
+                emissions_g += kwh * ci
+                self.ledger.record(self.t, float(step + 1), ci, 0.0)
 
-            if (step + 1) % lp.log_every == 0 or step + 1 == n:
-                self.history.append({
-                    "step": step + 1,
-                    "loss": float(metrics["loss"]),
-                    "ci": ci,
-                    "site": self.site,
-                    "emissions_g": emissions_g,
-                    "dcn_gb": dcn_bytes / 1e9,
-                })
+                # --- carbon-adaptive cross-pod sync (local-SGD) ---
+                steps_since_sync += 1
+                h = (self.sync_ctl.period(ci) if lp.carbon_aware
+                     else self.sync_ctl.h_min)
+                if steps_since_sync >= h:
+                    factor = {"none": 1.0, "int8": 0.25,
+                              "topk": 0.02}[self.run.grad_compression]
+                    dcn_bytes += self._param_bytes() * factor
+                    steps_since_sync = 0
+
+                # --- checkpoint + carbon-scheduled mirror ---
+                if self.ckpt.should_save(step + 1):
+                    self.ckpt.save(
+                        step + 1, self.params, self.opt,
+                        extra={"pipeline": self.pipeline.snapshot()},
+                        src_site=self.site, now=self.t)
+                    for job in self.ckpt.pending_mirrors:
+                        plan = self.planner.plan(job)
+                        self.events.append(
+                            f"mirror@{step+1}: start+"
+                            f"{(plan.start_t - self.t)/3600:.1f}h "
+                            f"ci={plan.predicted_avg_ci:.0f} "
+                            f"{plan.predicted_emissions_g:.1f}g")
+                    self.ckpt.pending_mirrors.clear()
+
+                # --- §4.3 carbon migration of the job itself ---
+                if lp.carbon_aware and (step + 1) % 20 == 0:
+                    remaining_s = (n - step) * lp.step_time_s
+                    plan = self.elastic.carbon_migration(
+                        self.site, self.t, float(self._param_bytes()),
+                        remaining_s)
+                    if plan is not None:
+                        self.events.append(f"migrate@{step+1}:{plan.reason}")
+                        self.site = self.cluster.site_of(plan.pods[0]).name
+                        self.pipeline.consumer_site = self.site
+
+                if (step + 1) % lp.log_every == 0 or step + 1 == n:
+                    self.history.append({
+                        "step": step + 1,
+                        "loss": float(metrics["loss"]),
+                        "ci": ci,
+                        "site": self.site,
+                        "emissions_g": emissions_g,
+                        "dcn_gb": dcn_bytes / 1e9,
+                    })
             step += 1
 
         return {
