@@ -56,11 +56,12 @@ and drives the port's paths:
   meshed and unmeshed prefills timed;
 * training mamba2-370m at full width and depth (48 layers, d_model 1024,
   vocab 50280, 32 SSD heads of 64, d_state 128, chunk 256, random weights
-  from a seed) on 8 x 2048-token batches: the SSD chunk-scan kernel
-  against its plain version at the training shapes, one train step on the
-  kernel path against the same step on the plain chunked path, then
-  ``Trainer`` for 6 steps with a checkpoint every 3 and a bit-exact
-  restore, and a ``torch.profiler`` split of one step;
+  from a seed) on 8 x 2048-token batches: the SSD chunk-scan kernel and
+  its backward kernels against their plain versions at the training
+  shapes, one train step on the kernel path against the same step on the
+  plain chunked path, then ``Trainer`` for 6 steps (48 forward launches
+  twice and 48 backward launches a step) with a checkpoint every 3 and a
+  bit-exact restore, and a ``torch.profiler`` split of one step;
 * serving mamba2-370m at full size: the SSD kernel against its plain
   version at the serving prefill's shapes (4 x 2048 tokens), then
   ``Server`` answering 8 requests of 2048-token prompts with 32 new tokens
@@ -113,11 +114,13 @@ and drives the port's paths:
   sequence-parallel forward and backward, the routing replayed), each
   held to the unmeshed step;
 * the roofline (phase 20): gemma3-12b's served 4 x 2048 prefill and
-  mamba2-370m's 8 x 2048 train step on the blockwise path, each traced on
-  meta tensors through ``steps.lower_cell`` and
+  mamba2-370m's 8 x 2048 train step on the blockwise and the kernel path,
+  each traced on meta tensors through ``steps.lower_cell`` and
   ``cost_analysis.analyze_cell`` on a one-device mesh and run on the card
-  under ``FlopCounterMode``: the two dot-FLOP counts equal, the CUDA-event
-  ms at least the H100 roofline's compute term, the terms printed with
+  under ``FlopCounterMode``: the two dot-FLOP counts equal once the
+  trace's SSD backward (a recompute, as the reference's) is taken down to
+  the backward kernels the card runs, the CUDA-event ms at least the H100
+  roofline's compute term and its slower term, the terms printed with
   the card's name and power limit; the card's peak memory over one call
   within [0.8, 1.25] of the trace's arguments plus its peak of live
   temporaries;
@@ -178,6 +181,12 @@ FLASH_KERNEL = "flash_fwd_wgmma"
 SSD_KERNEL_PREFIX = "ssd_scan_"
 SSD_PASSES = ("ssd_scan_cb", "ssd_scan_chunk_state", "ssd_scan_state_pass",
               "ssd_scan_chunk_out")
+# the SSD backward's passes: a prefix of their own, which does not hold
+# SSD_KERNEL_PREFIX, so that no backward time counts as the forward's
+SSD_BWD_PREFIX = "ssd_bwd_"
+SSD_BWD_PASSES = ("ssd_bwd_state_grad", "ssd_bwd_state_pass",
+                  "ssd_bwd_chunk_dx", "ssd_bwd_dcb", "ssd_bwd_dbc",
+                  "ssd_bwd_dcs", "ssd_bwd_da")
 
 # serving: gemma3-12b at full width and depth, 8 requests in static batches
 # of 4, 2048-token prompts, 32 new tokens each
@@ -248,6 +257,18 @@ LOGIT_TOL_REL = 5e-2
 # one of them (tests/test_torch_ssd.py emulates each).
 SSD_Y_REL_RMS_TOL = 1e-3
 SSD_H_REL_RMS_TOL = 1e-4
+# The SSD backward kernels against the plain backward (ssd_chunked_bwd) on
+# the same bf16 inputs and output gradient. dx, dB and dC (rounded to bf16
+# by both) differ where a rounding boundary falls between the two f32
+# results; ddt and dA (f32) by sum order and by the computed operands going
+# in as a bf16 high part plus remainder (~16 bits): e^{cs} dY, M, dCB and
+# the states H and D. Bounds on ||kernel - plain|| / ||plain|| of each
+# gradient: the state side of dX left out, the final state's gradient
+# ignored, or dA summed over one chunk alone each break one
+# (tests/test_torch_ssd.py emulates each).
+SSD_BWD_BF16_REL_RMS_TOL = 1e-3
+SSD_BWD_F32_REL_RMS_TOL = 5e-4
+SSD_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
 
 
 def ptxas_usage(log: str, name: str) -> dict:
@@ -1494,6 +1515,21 @@ def ssd_ok(err: dict) -> bool:
             and err["max_abs_err"] <= err["max_abs_tol"])
 
 
+def ssd_bwd_errors(got, want) -> dict:
+    """The SSD backward kernels' gradients (dx, ddt, dA, dB, dC) against
+    the plain backward's: the relative RMS error of each (see
+    SSD_BWD_BF16_REL_RMS_TOL, SSD_BWD_F32_REL_RMS_TOL)."""
+    return {f"{name}_rel_rms_err": float((g.float() - w.float()).norm()
+                                         / w.float().norm())
+            for name, g, w in zip(SSD_BWD_GRADS, got, want)}
+
+
+def ssd_bwd_ok(err: dict) -> bool:
+    return all(err[f"{name}_rel_rms_err"] <= (
+        SSD_BWD_F32_REL_RMS_TOL if name in ("ddt", "dA")
+        else SSD_BWD_BF16_REL_RMS_TOL) for name in SSD_BWD_GRADS)
+
+
 def flash_bound_ms(b: int, t: int, hq: int, hkv: int, d: int,
                    window, causal: bool = True) -> tuple:
     """Least time for one flash call on these inputs: 4*d tensor-core FLOP
@@ -1925,6 +1961,56 @@ def check_ssd(ssd, cfg, usage=None, batch: int = TRAIN_BATCH) -> dict:
     return case
 
 
+def check_ssd_bwd(ssd, cfg, usage=None, batch: int = TRAIN_BATCH) -> dict:
+    """The SSD backward kernels (``ssd_scan_bwd`` on the forward's scratch)
+    against the plain backward (``ssd_chunked_bwd``) at the training
+    shapes, with a unit-normal output gradient in bf16 and none for the
+    final state, as a training step has: each gradient's error, one launch
+    a call, card ms, the bound by ``ssd_bwd_cost`` and the plain ms. No
+    single PyTorch call computes them. ``usage`` (from :func:`ptxas_usage`)
+    adds each pass's registers and shared memory."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    ins = ssd_training_inputs(cfg, gen, batch)
+    chunk = cfg.ssm.chunk_size
+    gy = torch.randn(ins[0].shape, generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    _, _, work = ssd.ssd_scan(*ins, chunk, scratch=True)
+
+    def kernel():
+        return ssd.ssd_scan_bwd(*ins, chunk, gy, None, work)
+
+    def plain():
+        return ssd.ssd_chunked_bwd(*ins, chunk, gy, None)
+
+    before = ssd.ssd_scan.bwd_launches
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    launched = ssd.ssd_scan.bwd_launches - before
+    err = ssd_bwd_errors(got, want)
+    del got, want
+    if not ssd_bwd_ok(err) or launched != 1:
+        raise RuntimeError(f"SSD backward kernels disagree with the plain "
+                           f"backward, or launched {launched} times: {err}")
+    x = ins[0]
+    flops, nbytes = ssd.ssd_bwd_cost(tuple(x.shape), cfg.ssm.d_state, chunk)
+    ops_s, bytes_s = flops / BF16_TC_FLOPS, nbytes / HBM_BPS
+    case = {"x": list(x.shape), "B": list(ins[3].shape), "chunk": chunk,
+            **err, "tol_bf16_rel_rms": SSD_BWD_BF16_REL_RMS_TOL,
+            "tol_f32_rel_rms": SSD_BWD_F32_REL_RMS_TOL,
+            "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+            "library_ms": None, "bound_ms": 1e3 * max(ops_s, bytes_s),
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "flop": flops, "bytes": nbytes}
+    case["bound_share"] = case["bound_ms"] / case["ms"]
+    if usage is not None:
+        case["passes"] = {next((p for p in SSD_BWD_PASSES if p in e), e): u
+                          for e, u in usage.items()}
+    emit({"ssd_bwd_check": case})
+    del ins, gy, work
+    torch.cuda.empty_cache()
+    return case
+
+
 def loss_and_gnorm(M, adamw, model, run, batch) -> tuple:
     """The loss of one batch and the global norm of its gradient with
     respect to every parameter (no update)."""
@@ -2015,6 +2101,22 @@ class StepProbe:
         self.tr.step_fn = self.orig
 
 
+class BwdLaunches:
+    """``ssd_scan.bwd_launches`` under the name the launch gates read and
+    reset (:class:`StepProbe`, :func:`moe_train`)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.bwd_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.bwd_launches = n
+
+
 def train(tl, ssd, cfg, run, power_w: float) -> tuple:
     """The training main path (:func:`train_and_restore`) in a fresh
     checkpoint directory, which is deleted again afterwards."""
@@ -2029,8 +2131,8 @@ def train(tl, ssd, cfg, run, power_w: float) -> tuple:
 def train_and_restore(tl, ssd, cfg, run, power_w: float) -> tuple:
     """``Trainer`` runs TRAIN_STEPS steps with a checkpoint every
     CKPT_EVERY; a fresh ``Trainer`` on the same directory restores the last
-    step bit for bit. Returns the trainer and the SSD launches counted over
-    the path."""
+    step bit for bit. Returns the trainer and the SSD forward and backward
+    launches counted over the path."""
     from repro_torch.core.carbon.intensity import calibrated_ci
     from repro_torch.models.params import count_params
     loop = tl.TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_every=CKPT_EVERY,
@@ -2055,13 +2157,15 @@ def train_and_restore(tl, ssd, cfg, run, power_w: float) -> tuple:
             or len(tr.model.decoder.layers) != cfg.n_layers:
         raise RuntimeError("the trained model is not mamba2-370m at full "
                            "size")
-    ssd.ssd_scan.launches = 0
-    with StepProbe(tr, {"ssd": ssd.ssd_scan}) as probe:
+    ssd.ssd_scan.launches = ssd.ssd_scan.bwd_launches = 0
+    with StepProbe(tr, {"ssd": ssd.ssd_scan,
+                        "ssd_bwd": BwdLaunches(ssd.ssd_scan)}) as probe:
         t0 = time.perf_counter()
         out = tr.run_steps()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = ssd.ssd_scan.launches
+    bwd_launches = ssd.ssd_scan.bwd_launches
     per_step = cfg.n_layers * (2 if run.remat != "none" else 1)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     for i, r in enumerate(probe.rows):
@@ -2070,12 +2174,16 @@ def train_and_restore(tl, ssd, cfg, run, power_w: float) -> tuple:
               "tokens_per_s": tokens / r["wall_s"], "loss": r["loss"],
               "grad_norm": r["grad_norm"],
               "ssd_launches": r["launches"]["ssd"],
-              "ssd_launches_expected": per_step, "peak_gb": r["peak_gb"],
+              "ssd_launches_expected": per_step,
+              "ssd_bwd_launches": r["launches"]["ssd_bwd"],
+              "ssd_bwd_launches_expected": cfg.n_layers,
+              "peak_gb": r["peak_gb"],
               "site": r["site"], "ci_g_per_kwh": ci,
               "g_co2": r["wall_s"] * power_w / 3.6e6 * ci})
     emit({"train_main_path": {
         "steps": len(probe.rows), "final_step": out["final_step"],
-        "ssd_launches": launches, "wall_s": wall,
+        "ssd_launches": launches, "ssd_bwd_launches": bwd_launches,
+        "wall_s": wall,
         "tokens_per_s": tokens * len(probe.rows) / wall,
         "events": out["events"], "final_loss": out["final_loss"]}})
     if len(probe.rows) != TRAIN_STEPS or out["final_step"] != TRAIN_STEPS:
@@ -2087,6 +2195,10 @@ def train_and_restore(tl, ssd, cfg, run, power_w: float) -> tuple:
             or launches != per_step * TRAIN_STEPS:
         raise RuntimeError(f"SSD launches {launches} != {cfg.n_layers} "
                            f"layers x 2 (remat) x {TRAIN_STEPS} steps")
+    if any(r["launches"]["ssd_bwd"] != cfg.n_layers for r in probe.rows) \
+            or bwd_launches != cfg.n_layers * TRAIN_STEPS:
+        raise RuntimeError(f"SSD backward launches {bwd_launches} != "
+                           f"{cfg.n_layers} layers x {TRAIN_STEPS} steps")
     t0 = time.perf_counter()
     back = tl.Trainer(cfg, run, loop, batch_override=TRAIN_BATCH,
                       seq_override=TRAIN_SEQ, device=DEVICE)
@@ -2101,26 +2213,26 @@ def train_and_restore(tl, ssd, cfg, run, power_w: float) -> tuple:
                            "one")
     del back
     torch.cuda.empty_cache()
-    return tr, launches
+    return tr, launches, bwd_launches
 
 
-PLAIN_BWD = "ssd_plain_backward"
+SSD_BWD = "ssd_backward"
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
 
 
 def profile_training(ops, tr) -> dict:
     """Device time of one train step (``torch.profiler``), split
-    exclusively by kernel: everything launched inside the plain SSD
-    backward (a ``record_function`` range around ``_SSDScan.backward``:
-    its einsums' GEMMs and its elementwise work), and outside it the
-    GEMMs, the SSD kernel and all other device work; the rest of the
+    exclusively by kernel: everything launched inside the SSD backward (a
+    ``record_function`` range around ``_SSDScan.backward``: the backward
+    kernels on CUDA, the plain backward's work on the CPU), and outside it
+    the GEMMs, the SSD kernel and all other device work; the rest of the
     wall time is host gaps (the device's idle share)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     orig = ops._SSDScan.backward
 
     def labelled(ctx, gy, gh):
-        with record_function(PLAIN_BWD):
+        with record_function(SSD_BWD):
             return orig(ctx, gy, gh)
 
     batch = tr.pipeline.next_batch(tr.t)
@@ -2138,13 +2250,13 @@ def profile_training(ops, tr) -> dict:
 
     def inside(evt) -> bool:
         while evt is not None:
-            if evt.name == PLAIN_BWD:
+            if evt.name == SSD_BWD:
                 return True
             evt = evt.cpu_parent
         return False
 
     split = {"gemm_ms": 0.0, "ssd_kernel_ms": 0.0, "other_ms": 0.0,
-             "ssd_plain_backward_ms": 0.0}
+             "ssd_backward_ms": 0.0}
     by_name: dict = {}
     n_kernels = 0
     for evt in prof.events():
@@ -2155,7 +2267,7 @@ def profile_training(ops, tr) -> dict:
             n_kernels += 1
             ms = k.duration / 1e3
             by_name[k.name] = by_name.get(k.name, 0.0) + ms
-            key = ("ssd_plain_backward_ms" if in_bwd
+            key = ("ssd_backward_ms" if in_bwd
                    else "ssd_kernel_ms" if SSD_KERNEL_PREFIX in k.name
                    else "gemm_ms" if any(w in k.name.lower()
                                          for w in GEMM_NAMES)
@@ -2926,12 +3038,13 @@ def moe_train(tl, ops, cfg, run, batch: int, power_w: float, label: str,
 
 
 def moe_training(fa, ssd, ops, tl, M, adamw, built, power_w: float, clock,
-                 flash_cases, flash_paths, ssd_cases, ssd_paths) -> None:
+                 flash_cases, flash_paths, ssd_cases, ssd_paths,
+                 ssd_bwd_cases, ssd_bwd_paths) -> None:
     """Phases 17-19 (MOE_TRAIN_PHASES): for each cut model the refusal of
     its full size by ``launch.train``, the flash kernel (and jamba's SSD
-    kernel) against its plain version at the training batch's shapes,
-    :func:`check_moe_train_step`, then :func:`moe_train`. Adds to the
-    kernel cases and the launches by path."""
+    kernel and its backward) against its plain version at the training
+    batch's shapes, :func:`check_moe_train_step`, then :func:`moe_train`.
+    Adds to the kernel cases and the launches by path."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.pipeline import TokenPipeline
@@ -2951,6 +3064,9 @@ def moe_training(fa, ssd, ops, tl, M, adamw, built, power_w: float, clock,
         kernels = {"flash": (fa.flash_attention, 2 * n_attn)}
         if n_attn < len(specs):
             kernels["ssd"] = (ssd.ssd_scan, 2 * (len(specs) - n_attn))
+            # and the SSD backward kernels once a layer
+            kernels["ssd_bwd"] = (BwdLaunches(ssd.ssd_scan),
+                                  len(specs) - n_attn)
         name = (f"{label}_train_b{batch}_gqa{cfg.n_heads}to{cfg.n_kv_heads}"
                 f"_d{cfg.head_dim}")
         flash_cases += check_flash(fa, cfg, flash_usage,
@@ -2958,6 +3074,8 @@ def moe_training(fa, ssd, ops, tl, M, adamw, built, power_w: float, clock,
         if cfg.ssm is not None:
             ssd_cases[f"training_{label}_b{batch}_d{cfg.ssm.d_state}"] = \
                 check_ssd(ssd, cfg, ssd_usage, batch=batch)
+            ssd_bwd_cases[f"training_{label}_b{batch}_d{cfg.ssm.d_state}"] \
+                = check_ssd_bwd(ssd, cfg, batch=batch)
         run = RunConfig(arch=arch, attn_impl="flash", remat="block",
                         seed=SEED, warmup_steps=2, total_steps=MOE_TRAIN_STEPS)
         tokens = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
@@ -2976,6 +3094,7 @@ def moe_training(fa, ssd, ops, tl, M, adamw, built, power_w: float, clock,
         flash_paths[f"{num} train {label}"] = launches["flash"]
         if "ssd" in launches:
             ssd_paths[f"{num} train {label}"] = launches["ssd"]
+            ssd_bwd_paths[f"{num} train {label}"] = launches["ssd_bwd"]
         clock.mark(f"{num} train {label}")
 
 
@@ -3579,8 +3698,12 @@ def seq_prefill(M, model, run, tokens, logits, flash, card: str) -> tuple:
 # traced on meta tensors (steps.lower_cell + cost_analysis.analyze on a
 # one-device mesh) and run on the card, each on the blockwise path and on
 # the kernel path (flash: the flash kernel in gemma3's prefill, the SSD
-# kernel's forward and the plain backward in mamba2's step), whose kernels
-# the trace counts by their rules
+# kernel's forward and its backward kernels in mamba2's step), whose kernels
+# the trace counts by their rules. On meta tensors the SSD backward is the
+# recompute the reference's own backward is (the dry run is held to the
+# reference like for like), so the trace's count of the kernel path's step
+# exceeds the card's by what :func:`ssd_backward_gap` traces, once per
+# backward call
 ROOFLINE_CELLS = tuple(
     (arch, kind, batch, seq, impl) for arch, kind, batch, seq in (
         ("gemma3-12b", "prefill", SERVE_BATCH, PROMPT_LEN),
@@ -3600,11 +3723,16 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int, impl: str,
     tensors (dot FLOPs, HBM bytes, the H100 roofline, each kernel's
     calls), then built at full size with random weights from SEED and run
     on the card, once under ``FlopCounterMode`` and ROOFLINE_TIMED times
-    between CUDA events. Raises unless the card's count equals the
-    trace's, the measured ms are at least the roofline's compute term, the
-    card's peak memory is within PEAK_RATIO_BOUNDS of the trace's and each
-    kernel launched, in the counted call, as often as the trace calls
-    it."""
+    between CUDA events, every call the same program. The roofline's terms
+    are those of what the card runs: the trace's count less
+    :func:`ssd_backward_gap` for each SSD backward call
+    (:func:`ssd_backward_calls`). Raises unless the card's count equals
+    that, the measured ms are at least its compute term and at least its
+    slower term (a measured fraction of at most 1), the card's peak memory
+    is within PEAK_RATIO_BOUNDS of the trace's (of the trace's less the SSD
+    backward recompute's excess, on the low side), each kernel launched, in
+    the counted call, as often as the trace calls it, and the SSD backward
+    kernels once per backward call."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config
@@ -3628,9 +3756,20 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int, impl: str,
         low, _ = steps.lower_cell(cfg, run, shape)
     calls: dict = {}
     hlo, mem = analyze(low, calls)
+    n_bwd = ssd_backward_calls(cfg, kind, impl)
+    gap = ssd_backward_gap(cfg, batch, seq) if n_bwd else (0, 0, 0)
     trace_s = time.perf_counter() - t0
     trace_peak = mem["argument_bytes"] + mem["temp_bytes"]
-    roof = roofline_report({"hlo": hlo, "chips": 1}, cfg, shape)
+    # the card's peak lies between the trace's less the recompute's excess
+    # (where the step's peak falls in an SSD backward) and the trace's
+    # (where it falls elsewhere)
+    run_peak = sorted((trace_peak, trace_peak - gap[2]))
+    trace_roof = roofline_report({"hlo": hlo, "chips": 1}, cfg, shape)
+    # what the card runs: the backward kernels in place of the recompute
+    ran = {**hlo,
+           "dot_flops_per_chip": hlo["dot_flops_per_chip"] - n_bwd * gap[0],
+           "mem_bytes_per_chip": hlo["mem_bytes_per_chip"] - n_bwd * gap[1]}
+    roof = roofline_report({"hlo": ran, "chips": 1}, cfg, shape)
 
     model = M.build_model(cfg, seed=SEED, device=DEVICE)
     data = {k: v.to(DEVICE) for k, v in M.make_batch(
@@ -3651,10 +3790,12 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int, impl: str,
     torch.cuda.synchronize()
     for name, mod in wrappers.items():
         getattr(mod, name).launches = 0
+    ssd.ssd_scan.bwd_launches = 0
     with FlopCounterMode(display=False) as fc:
         call()
     torch.cuda.synchronize()
     launches = {n: getattr(mod, n).launches for n, mod in wrappers.items()}
+    bwd_launches = ssd.ssd_scan.bwd_launches
     card_flops = fc.get_total_flops()
     card_args, card_peak = card_memory(call)
     times = []
@@ -3671,9 +3812,16 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int, impl: str,
     res = {"arch": arch, "kind": kind, "batch": batch, "seq": seq,
            "attn_impl": run.attn_impl, "trace_s": trace_s,
            "trace_kernel_calls": calls, "launches": launches,
+           "ssd_bwd_calls": n_bwd, "ssd_bwd_launches": bwd_launches,
+           "ssd_bwd_gap_flops": gap[0], "ssd_bwd_gap_bytes": gap[1],
+           "ssd_bwd_gap_peak_bytes": gap[2],
            "dot_flops_per_chip": hlo["dot_flops_per_chip"],
            "card_flops": card_flops,
            "mem_bytes_per_chip": hlo["mem_bytes_per_chip"],
+           "run_dot_flops": ran["dot_flops_per_chip"],
+           "run_mem_bytes": ran["mem_bytes_per_chip"],
+           "trace_t_compute_ms": 1e3 * trace_roof["t_compute_s"],
+           "trace_t_memory_ms": 1e3 * trace_roof["t_memory_s"],
            "t_compute_ms": 1e3 * roof["t_compute_s"],
            "t_memory_ms": 1e3 * roof["t_memory_s"],
            "bound": roof["bound"], "measured_ms": ms, "timed_ms": times,
@@ -3685,28 +3833,96 @@ def roofline_cell(arch: str, kind: str, batch: int, seq: int, impl: str,
            "useful_flops_ratio": roof["useful_flops_ratio"],
            "trace_memory": mem, "trace_peak_bytes": trace_peak,
            "card_allocated_bytes": card_args, "card_peak_bytes": card_peak,
-           "peak_ratio": card_peak / trace_peak, "card": card}
+           "peak_ratio": card_peak / trace_peak,
+           "run_peak_bytes": run_peak,
+           "run_peak_ratios": [card_peak / p for p in run_peak],
+           "card": card}
     emit({"roofline_cell": res})
     print(f"roofline {arch} {kind} {impl}: {ms:.2f} ms measured, "
           f"{max(res['t_compute_ms'], res['t_memory_ms']):.2f} ms bound by "
           f"{res['bound']}, fraction {res['measured_roofline_fraction']:.3f}",
           flush=True)
-    if card_flops != hlo["dot_flops_per_chip"]:
+    if card_flops != ran["dot_flops_per_chip"]:
         raise RuntimeError(f"{arch} {kind}: the card ran {card_flops} dot "
                            f"FLOPs, the meta trace counts "
-                           f"{hlo['dot_flops_per_chip']}")
+                           f"{hlo['dot_flops_per_chip']}, less {gap[0]} "
+                           f"for each of {n_bwd} SSD backward calls")
     if not ms >= res["t_compute_ms"]:
         raise RuntimeError(f"{arch} {kind}: {ms} ms measured, under the "
                            f"roofline's compute term {res['t_compute_ms']}")
+    if not res["measured_roofline_fraction"] <= 1.0:
+        raise RuntimeError(f"{arch} {kind} {impl}: a measured roofline "
+                           f"fraction of {res['measured_roofline_fraction']}"
+                           f" is above 1: the trace counts work the card "
+                           f"does not run")
     lo, hi = PEAK_RATIO_BOUNDS
-    if not lo <= res["peak_ratio"] <= hi:
+    if not (lo <= card_peak / run_peak[0] and card_peak / run_peak[1] <= hi):
         raise RuntimeError(f"{arch} {kind}: the card's peak {card_peak} B "
-                           f"is {res['peak_ratio']} of the trace's "
-                           f"{trace_peak} B, outside [{lo}, {hi}]")
-    if any(launches[n] != calls.get(n, 0) for n in wrappers):
+                           f"is {res['run_peak_ratios']} of the trace's "
+                           f"{trace_peak} B and of that less {gap[2]} B for "
+                           f"the SSD backward's recompute, outside "
+                           f"[{lo}, {hi}]")
+    if any(launches[n] != calls.get(n, 0) for n in wrappers) \
+            or bwd_launches != n_bwd:
         raise RuntimeError(f"{arch} {kind} {impl}: the card launched "
-                           f"{launches}, the trace calls {calls}")
+                           f"{launches} and the SSD backward {bwd_launches} "
+                           f"times, the trace calls {calls} and the "
+                           f"backward {n_bwd} times")
     return res
+
+
+def ssd_backward_calls(cfg, kind: str, impl: str) -> int:
+    """The SSD backward calls of one step: one per SSM layer in a train
+    step on the kernel path (the blockwise path differentiates the plain
+    chunked scan with autograd, and serving takes no gradient)."""
+    from repro_torch.models.kvcache import layer_specs
+    if kind != "train" or impl != "flash":
+        return 0
+    return sum(s.mixer == "ssm" for s in layer_specs(cfg))
+
+
+def ssd_backward_gap(cfg, batch: int, seq: int) -> tuple:
+    """(dot FLOPs, HBM bytes, peak bytes) that a meta trace counts for one
+    SSD backward call beyond what the card runs for it. On meta tensors
+    ``_SSDScan.backward`` recomputes through ``ssd_chunked`` with autograd,
+    as the reference's backward does; on the card it runs the backward
+    kernels, which ``FlopCounterMode`` counts by ``ssd_bwd_cost``. The
+    recompute is traced here alone, after a forward call at the cell's
+    shapes in the model's layout (x, B and C views of the conv output; dt
+    and the output gradient whole; no gradient for the final state): its
+    count less ``ssd_bwd_cost``, and the most it holds less what the
+    kernels hold then (the forward's scratch, which the card keeps for
+    them, their own scratch and the gradients)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.runtime import cost_analysis as CA
+    s = cfg.ssm
+    nh, hd, g, n = s.n_heads(cfg.d_model), s.headdim, s.n_groups, s.d_state
+    dtype = getattr(torch, cfg.dtype)
+    size = torch.finfo(dtype).bits // 8
+
+    def meta(*shape, dt=dtype, grad=True):
+        return torch.empty(shape, dtype=dt, device="meta",
+                           requires_grad=grad)
+
+    xbc = meta(batch, seq, nh * hd + 2 * g * n)
+    x, bm, cm = torch.split(xbc, [nh * hd, g * n, g * n], dim=-1)
+    ins = (x.reshape(batch, seq, nh, hd), meta(batch, seq, nh,
+                                               dt=torch.float32),
+           meta(nh, dt=torch.float32), bm.reshape(batch, seq, g, n),
+           cm.reshape(batch, seq, g, n))
+    gy = meta(batch, seq, nh, hd, grad=False)
+    y, _ = ops.ssd_scan(*ins, s.chunk_size)
+    tr, _ = CA._run(lambda: torch.autograd.grad(y, ins, gy), None, None, (),
+                    (), False)
+    got = CA._counts(tr)
+    dims = (batch, seq, nh, hd, n, s.chunk_size)
+    flops, nbytes = ssd.ssd_bwd_cost(dims[:4], n, s.chunk_size, size)
+    grads = (size * (batch * seq * (nh * hd + 2 * g * n))
+             + 4 * (batch * seq * nh + nh))
+    held = ssd.workspace_bytes(*dims) + ssd.bwd_workspace_bytes(*dims) + grads
+    return (got["dot_flops_per_chip"] - flops,
+            got["mem_bytes_per_chip"] - nbytes, tr.peak - held)
 
 
 def card_memory(call) -> tuple:
@@ -4029,6 +4245,8 @@ def main() -> int:
     tcfg = get_config(TRAIN_ARCH)
     ssd_case = check_ssd(
         ssd, tcfg, ptxas_usage(built[ssd._SOURCE.name][1], SSD_KERNEL_PREFIX))
+    ssd_bwd_cases = {"training": check_ssd_bwd(
+        ssd, tcfg, ptxas_usage(built[ssd._SOURCE.name][1], SSD_BWD_PREFIX))}
     trun = RunConfig(arch=TRAIN_ARCH, attn_impl="flash", remat="block",
                      seed=SEED, warmup_steps=2, total_steps=TRAIN_STEPS)
     from repro_torch.data.pipeline import TokenPipeline
@@ -4038,7 +4256,8 @@ def main() -> int:
     check_train_step(M, adamw, ssd.ssd_scan, tcfg, trun, batch,
                      2 * tcfg.n_layers)
     del batch
-    tr, ssd_launches = train(tl, ssd, tcfg, trun, power_limit_w(card))
+    tr, ssd_launches, ssd_bwd_launches = train(tl, ssd, tcfg, trun,
+                                               power_limit_w(card))
     emit({"train_profile": profile_training(ops, tr)})
     del tr
     torch.cuda.empty_cache()
@@ -4098,15 +4317,22 @@ def main() -> int:
     # 17-19. the moe and hybrid families trained at full width, depth and
     # experts cut to one card: a train step on the kernel path against the
     # plain path routing as it did, then three Trainer steps
+    ssd_bwd_paths = {"10 train mamba2-370m": ssd_bwd_launches}
     moe_training(fa, ssd, ops, tl, M, adamw, built, power_limit_w(card),
-                 clock, flash_cases, flash_paths, ssd_cases, ssd_paths)
+                 clock, flash_cases, flash_paths, ssd_cases, ssd_paths,
+                 ssd_bwd_cases, ssd_bwd_paths)
 
     # 20. the roofline: gemma3-12b's served prefill and mamba2-370m's train
     # step traced on meta tensors and run on the card, blockwise and on the
-    # kernel path, their dot FLOPs and kernel launches equal
-    flash_roof, ssd_roof = roofline_paths(roofline_phase(gpu_line()))
+    # kernel path: the card's dot FLOPs the trace's less its SSD backward
+    # recompute's excess, the kernel launches the trace's calls
+    cells = roofline_phase(gpu_line())
+    flash_roof, ssd_roof = roofline_paths(cells)
     flash_paths.update(flash_roof)
     ssd_paths.update(ssd_roof)
+    ssd_bwd_paths.update({f"20 roofline {r['arch']} {r['kind']}":
+                          r["ssd_bwd_launches"] for r in cells
+                          if r["ssd_bwd_launches"]})
     clock.mark("20 roofline")
 
     # 21. the dry run over both production meshes: kimi-k2's train_4k and
@@ -4144,6 +4370,20 @@ def main() -> int:
              "x", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
              "y_rel_rms_err", "h_rel_rms_err")}
              for name, c in ssd_cases.items()}})
+    kernels.append(
+        {"name": "ssd_bwd", "route": "cuda", "source": SSD_SRC,
+         "replaces": None,
+         "launches": sum(ssd_bwd_paths.values()),
+         "launches_by_path": ssd_bwd_paths,
+         **{f"{g}_rel_rms_err": max(c[f"{g}_rel_rms_err"]
+                                    for c in ssd_bwd_cases.values())
+            for g in SSD_BWD_GRADS},
+         **{k: ssd_bwd_cases["training"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "timed_case": "training",
+         "cases": {name: {k: c[k] for k in (
+             "x", "ms", "plain_ms", "bound_ms", "bound_by")}
+             for name, c in ssd_bwd_cases.items()}})
     emit({"phase_s": clock.phases})
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)

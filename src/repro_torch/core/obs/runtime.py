@@ -144,7 +144,9 @@ def count(name: str, n: float, **labels: Any) -> None:
 def count_device(name: str, value: torch.Tensor, **labels: Any) -> None:
     """Add the 0-d tensor ``value`` into the counter ``name`` on its
     device while recording; read only by :func:`snapshot`. A meta tensor
-    (a cell's cost trace) holds no count and adds nothing."""
+    (a cell's cost trace) holds no count and adds nothing. The counter is
+    a normal tensor even when made under ``torch.inference_mode`` (as
+    serving runs), so that a later count outside it may add to it."""
     if not (_profiler._is_profiler_enabled or _forced):
         return
     if value.device.type == "meta":
@@ -156,8 +158,9 @@ def count_device(name: str, value: torch.Tensor, **labels: Any) -> None:
         if acc is None:
             dt = (torch.float64 if value.is_floating_point()
                   else torch.int64)
-            acc = _device[key] = torch.zeros((), dtype=dt,
-                                             device=value.device)
+            with torch.inference_mode(False):
+                acc = _device[key] = torch.zeros((), dtype=dt,
+                                                 device=value.device)
         acc.add_(value.detach())
 
 

@@ -2,21 +2,25 @@
 
 The counterpart of the reference's ``kernels/ops.py``: each kernel becomes
 a ``torch.autograd.Function`` whose forward runs the kernel (its wrapper
-takes the plain version for CPU tensors) and whose backward recomputes the
-function with autograd through a plain torch version, the reference's
-recompute-backward pattern until a dedicated backward kernel lands. The
-layout work that ``ops.py`` does there is in the kernel wrappers here:
-both kernels read the model layout with strides.
+takes the plain version for CPU tensors). The layout work that ``ops.py``
+does there is in the kernel wrappers here: both kernels read the model
+layout with strides.
 
-* :func:`flash_attention` recomputes through
+* :func:`flash_attention` recomputes its backward with autograd through
   :func:`~repro_torch.kernels.ref.flash_attention_ref`, as ``_fa_bwd``
   does.
-* :func:`ssd_scan` recomputes through the chunked
-  :func:`~repro_torch.kernels.ssd_scan.ssd_chunked`, not through the
-  sequential oracle that the reference's ``_ssd_bwd`` uses: the two
-  compute the same function, and in eager torch the sequential scan would
-  keep one state per token (2,048 of 8.4 MB per layer at mamba2-370m's
-  training shapes) and launch thousands of kernels per layer.
+* :func:`ssd_scan` keeps the forward kernels' scratch (C Bᵀ per chunk, cs
+  per head, the state entering each chunk) and takes its backward from
+  :func:`~repro_torch.kernels.ssd_scan.ssd_scan_bwd`: on CUDA the backward
+  kernels, which read that scratch and run no forward pass again; on the
+  CPU its plain closed form
+  :func:`~repro_torch.kernels.ssd_scan.ssd_chunked_bwd`. The reference's
+  ``_ssd_bwd`` recomputes through the sequential oracle instead. On meta
+  tensors the backward recomputes through the chunked
+  :func:`~repro_torch.kernels.ssd_scan.ssd_chunked` with autograd, so that
+  a meta trace (the dry run, held to the reference's recompute) counts
+  what it counted before the kernels; ``chip_smoke.py``'s
+  ``ssd_backward_gap`` gives what it counts beyond them.
 """
 from __future__ import annotations
 
@@ -77,16 +81,24 @@ class _SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        y, h, work = _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk, scratch=True)
+        # only the CUDA kernels' scratch feeds the backward
+        ctx.save_for_backward(x, dt, A, Bm, Cm, work if x.is_cuda else None)
         ctx.chunk = chunk
-        return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk)
+        return y, h
 
     @staticmethod
     def backward(ctx, gy, gh):
-        def plain(x, dt, A, Bm, Cm):
-            return _ssd.ssd_chunked(x, dt, A, Bm, Cm, ctx.chunk)
-        return (*_recompute_grads(plain, ctx.saved_tensors,
-                                  ctx.needs_input_grad[:5], (gy, gh)),
+        *ins, work = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        if ins[0].device.type == "meta":
+            def plain(x, dt, A, Bm, Cm):
+                return _ssd.ssd_chunked(x, dt, A, Bm, Cm, ctx.chunk)
+            return (*_recompute_grads(plain, ins, needs, (gy, gh)), None)
+        if (gy is None and gh is None) or not any(needs):
+            return (None,) * 6
+        grads = _ssd.ssd_scan_bwd(*ins, ctx.chunk, gy, gh, work)
+        return (*(g if need else None for g, need in zip(grads, needs)),
                 None)
 
 

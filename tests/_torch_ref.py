@@ -1338,12 +1338,24 @@ def _counting(real):
 def launch_counters(monkeypatch) -> None:
     """Wrap ``flash_attention.flash_attention`` and ``ssd_scan.ssd_scan``
     (which ``kernels/ops.py`` looks up at call time) in counters of their
-    calls on CPU tensors, in each wrapper's ``launches``: a CPU rehearsal's
-    stand-in for the card's launches (a meta call launches nothing)."""
+    calls on CPU tensors, in each wrapper's ``launches``, and
+    ``ssd_scan.ssd_scan_bwd`` in one of its CPU calls, in
+    ``ssd_scan.ssd_scan.bwd_launches`` as the card counts them: a CPU
+    rehearsal's stand-in for the card's launches (a meta call launches
+    nothing)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
     for mod, name in ((fa, "flash_attention"), (ssd, "ssd_scan")):
         monkeypatch.setattr(mod, name, _counting(getattr(mod, name)))
+    ssd.ssd_scan.bwd_launches = 0
+    real_bwd = ssd.ssd_scan_bwd
+
+    def bwd(*args, **kwargs):
+        if args[0].device.type == "cpu":
+            ssd.ssd_scan.bwd_launches += 1
+        return real_bwd(*args, **kwargs)
+
+    monkeypatch.setattr(ssd, "ssd_scan_bwd", bwd)
 
 
 def _entry_json(e):

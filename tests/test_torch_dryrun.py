@@ -439,12 +439,15 @@ def test_chip_smoke_phase_20_memory_gate_on_reduced_cells(monkeypatch):
 
 def test_chip_smoke_phase_20_flash_cells_on_reduced_cells(monkeypatch):
     """Phase 20's kernel-path cells at reduced size: the flash kernel in
-    gemma3's prefill, the SSD kernel's forward (and its remat) with the
-    plain backward in mamba2's step. The FlopCounterMode count equals the
-    trace's, the memory gate holds, and each kernel's launches in the
-    counted call equal its custom-op calls in the trace (the CPU
-    rehearsal counts the wrappers' CPU calls as launches); a kernel that
-    launched once more than the trace calls it fails the gate."""
+    gemma3's prefill, the SSD kernel's forward (and its remat) and its
+    backward in mamba2's step, every call as the card runs them. The
+    FlopCounterMode count equals the trace's less the recompute's excess
+    over the backward's rule once a backward call (the trace recomputes
+    the SSD backward, as the reference does), the memory gate holds, and
+    each kernel's launches in the counted call equal its custom-op calls in
+    the trace, the backward's one a layer (the CPU rehearsal counts the
+    wrappers' CPU calls as launches); a kernel that launched once more
+    than the trace calls it fails the gate."""
     import chip_smoke
     from repro_torch.kernels import ssd_scan as ssd
     ref.rehearse_phase_20(chip_smoke, monkeypatch)
@@ -454,12 +457,23 @@ def test_chip_smoke_phase_20_flash_cells_on_reduced_cells(monkeypatch):
                                     "cpu")]
     lo, hi = chip_smoke.PEAK_RATIO_BOUNDS
     for r in got:
-        assert r["card_flops"] == r["dot_flops_per_chip"] > 0
-        assert lo <= r["peak_ratio"] <= hi, r
+        assert r["card_flops"] == r["run_dot_flops"] == (
+            r["dot_flops_per_chip"]
+            - r["ssd_bwd_calls"] * r["ssd_bwd_gap_flops"]) > 0
+        low, high = r["run_peak_ratios"]
+        assert lo <= low and high <= hi, r
         assert {n: k for n, k in r["launches"].items() if k} \
             == r["trace_kernel_calls"]
+        assert r["ssd_bwd_launches"] == r["ssd_bwd_calls"]
+        assert 0 < r["measured_roofline_fraction"] <= 1
     assert got[0]["launches"] == {"flash_attention": 2, "ssd_scan": 0}
     assert got[1]["launches"] == {"flash_attention": 0, "ssd_scan": 4}
+    assert (got[0]["ssd_bwd_calls"], got[1]["ssd_bwd_calls"]) == (0, 2)
+    assert got[0]["ssd_bwd_gap_flops"] == got[0]["ssd_bwd_gap_bytes"] == 0
+    assert got[0]["run_peak_ratios"] == [got[0]["peak_ratio"]] * 2
+    assert min(got[1][f"ssd_bwd_gap_{k}"] for k in (
+        "flops", "bytes", "peak_bytes")) > 0
+    assert got[1]["t_memory_ms"] < got[1]["trace_t_memory_ms"]
     assert chip_smoke.roofline_paths(got) == (
         {"20 roofline gemma3-12b prefill": 2},
         {"20 roofline mamba2-370m train": 4})
@@ -471,11 +485,57 @@ def test_chip_smoke_phase_20_flash_cells_on_reduced_cells(monkeypatch):
             one_more.launches += 1 + (one_more.launches == 0)
         return inner(*args, **kwargs)
 
-    one_more.launches = 0
+    one_more.launches = one_more.bwd_launches = 0
     monkeypatch.setattr(ssd, "ssd_scan", one_more)
     with pytest.raises(RuntimeError, match="launched"):
         chip_smoke.roofline_cell("mamba2-370m", "train", 2, 64, "flash",
                                  "cpu")
+
+
+def test_chip_smoke_phase_20_gates_the_path_the_card_runs(monkeypatch):
+    """Phase 20's mamba2 step on the kernel path at reduced size fails its
+    count gate when the SSD backward's gap is left out (the card's count
+    is then the trace's of a backward it does not run), when the card
+    launches the backward kernels once more than once a layer, and when
+    the measured ms put the step above its slower roofline term (a
+    measured fraction above 1)."""
+    import chip_smoke
+    from repro_torch.kernels import ssd_scan as ssd
+    ref.rehearse_phase_20(chip_smoke, monkeypatch)
+    cell = ("mamba2-370m", "train", 2, 64, "flash", "cpu")
+    r = chip_smoke.roofline_cell(*cell)
+    real_gap = chip_smoke.ssd_backward_gap
+    monkeypatch.setattr(chip_smoke, "ssd_backward_gap", lambda *a: (0, 0, 0))
+    with pytest.raises(RuntimeError, match="dot FLOPs"):
+        chip_smoke.roofline_cell(*cell)
+    monkeypatch.setattr(chip_smoke, "ssd_backward_gap", real_gap)
+    inner = ssd.ssd_scan_bwd
+
+    def twice(*args, **kwargs):
+        ssd.ssd_scan.bwd_launches += 1
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(ssd, "ssd_scan_bwd", twice)
+    with pytest.raises(RuntimeError, match="backward"):
+        chip_smoke.roofline_cell(*cell)
+    monkeypatch.setattr(ssd, "ssd_scan_bwd", inner)
+    # memory-bound: ms between the two terms pass the compute gate alone
+    assert r["bound"] == "memory"
+    between = (r["t_compute_ms"] + r["t_memory_ms"]) / 2
+
+    class Event:
+        def __init__(self, **_):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, _):
+            return between
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    with pytest.raises(RuntimeError, match="above 1"):
+        chip_smoke.roofline_cell(*cell)
 
 
 def _reduced_python(tmp_path: Path) -> str:

@@ -276,21 +276,24 @@ def test_a_fault_fails_the_comparison(reference, monkeypatch, fault):
 
 # --- the fakes and the SSD scratch -------------------------------------------
 
-def source_workspace_bytes(*dims) -> int:
-    """``workspace(...).total`` of ``csrc/ssd_scan.cu``, evaluated from the
-    source's own statements (``align256`` and ``workspace``)."""
+def source_workspace_bytes(*dims, kind: str = "Workspace") -> int:
+    """``workspace(...).total`` of ``csrc/ssd_scan.cu`` (``kind``
+    ``"BwdWorkspace"``: ``bwd_workspace(...).total``, the backward's),
+    evaluated from the source's own statements (``align256`` and the
+    function)."""
     src = (REPO / "src" / "repro_torch" / "csrc" / "ssd_scan.cu").read_text()
     align = re.search(r"size_t align256\(size_t v\) \{ return (.*?); \}",
                       src).group(1)
-    body = re.search(r"Workspace workspace\(int batch, int seq, int n_heads,"
-                     r" int hd, int n, int q\) \{\n(.*?)\n\}", src,
+    fn = "bwd_workspace" if kind == "BwdWorkspace" else "workspace"
+    body = re.search(kind + r" " + fn + r"\(int batch, int seq, int n_heads,"
+                     r"\s+int hd, int n,\s+int q\) \{\n(.*?)\n\}", src,
                      re.S).group(1)
     env = dict(zip(("batch", "seq", "n_heads", "hd", "n", "q"), dims))
     env["align256"] = lambda v: eval(align.replace("~size_t(255)", "~255"),
                                      {"v": v})
     for line in body.splitlines():
         line = line.strip().rstrip(";")
-        if line in ("Workspace w", "return w"):
+        if line in (f"{kind} w", "return w"):
             continue
         line = (line.replace("const size_t ", "").replace("(size_t)", "")
                 .replace("sizeof(float)", "4").replace("w.", "w_")
@@ -323,6 +326,16 @@ def _fake_allocations_ok(dims) -> bool:
 def test_ssd_fake_allocates_what_the_cuda_wrapper_allocates(dims):
     assert ssd.workspace_bytes(*dims) == source_workspace_bytes(*dims)
     assert _fake_allocations_ok(dims)
+
+
+@pytest.mark.parametrize("dims", SCRATCH_SHAPES, ids=str)
+def test_ssd_backward_scratch_is_what_the_kernel_source_sizes(dims):
+    """``bwd_workspace_bytes``, which phase 20 reads for the memory the
+    backward kernels hold, against ``bwd_workspace(...).total`` of the
+    source, and apart from the forward's."""
+    want = source_workspace_bytes(*dims, kind="BwdWorkspace")
+    assert ssd.bwd_workspace_bytes(*dims) == want
+    assert want != source_workspace_bytes(*dims)
 
 
 def test_scratch_sized_other_than_its_twin_fails(monkeypatch):

@@ -173,6 +173,23 @@ def test_record_keeps_spans_and_counts_without_a_profiler():
     assert obs.snapshot()["spans"] == []
 
 
+def test_device_counter_first_counted_in_inference_mode_counts_on():
+    """A device counter made under ``torch.inference_mode`` (serving) takes
+    a later count outside it (a profiled train step), and one inside it
+    again."""
+    obs.reset()
+    with obs.record():
+        with torch.inference_mode():
+            obs.count_device("moe.kept", torch.tensor(3))
+        obs.count_device("moe.kept", torch.tensor(2))
+        with torch.inference_mode():
+            obs.count_device("moe.kept", torch.tensor(4))
+    got = [e["value"] for e in obs.snapshot()["metrics"]["counters"]
+           if e["name"] == "moe.kept"]
+    obs.reset()
+    assert got == [9]
+
+
 def test_spans_of_two_threads_keep_their_own_parents():
     import threading
     with obs.record():
